@@ -1,0 +1,645 @@
+"""The large-N tier of the topology search, with the device-priced replica
+polish (the counterpart of ``repro.core.search``'s ``large_search``).
+
+``large_search(n, k, replicas=R)`` runs a circulant warm start (a pinned
+offset set, or the numpy-priced hillclimb ``circulant_search``), then
+``_replica_polish``: R lockstep annealing chains whose R*M orbit-swap
+proposals per iteration are priced in one device dispatch through
+``core.engines.cuda_sweep`` — the hand-written CUDA kernels on a CUDA
+device, their plain PyTorch versions when the caller passes
+``device="cpu"``.
+
+The randomness is the reference's: host numpy Generators,
+``default_rng(seed)`` in the hillclimb and ``default_rng([seed, r])`` per
+chain, consumed in the same order, and every accept is decided on exact
+integer hop totals.  So per seed the port follows the reference's
+trajectory bit for bit and returns the same graph.  ``SearchResult``,
+``_circulant_profile``, ``circulant_search``, ``_orbit``,
+``_draw_orbit_swap`` and ``_circulant_orbits`` are copies of the
+reference's (the hillclimb prices with the numpy pricer only).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from . import metrics
+from .engines import cuda_sweep
+from .graphs import Graph, circulant, from_edges
+from .known_optimal import KNOWN_CIRCULANT_OFFSETS
+
+__all__ = ["SearchResult", "circulant_search", "large_search"]
+
+
+@dataclasses.dataclass
+class SearchResult:
+    graph: Graph
+    mpl: float
+    diameter: float
+    mpl_lb: float
+    d_lb: int
+    iterations: int
+    accepted: int
+    history: list[float]  # best-so-far MPL trace (sparse)
+    replicas: int = 1
+    evals_delta: int = 0  # incremental evaluations (delta path)
+    evals_full: int = 0  # full-recompute fallbacks
+    device_dispatches: int = 0  # device pricing dispatches (replica polish)
+    offsets: tuple[int, ...] | None = None  # circulant offsets, if applicable
+    compound_steps: int = 0  # multi-orbit proposals priced (moves_per_step > 1)
+    objective_value: float | None = None  # non-MPL objective score (e.g.
+    # synthesized collective-schedule seconds for objective="collective-time")
+
+    @property
+    def mpl_gap(self) -> float:
+        return self.mpl - self.mpl_lb
+
+    @property
+    def d_gap(self) -> float:
+        return self.diameter - self.d_lb
+
+
+# --------------------------------------------------------------------------------
+# Circulant warm start
+# --------------------------------------------------------------------------------
+
+def _circulant_profile(n: int, offsets) -> tuple[float, float]:
+    """(MPL, diameter) of C_n(offsets) via implicit np.roll BFS from vertex 0.
+
+    Vertex-transitivity means one BFS gives the global MPL/diameter; working
+    on the offset list directly (no Graph/edge-list materialisation) makes a
+    candidate evaluation O(D * k * n) vector ops — thousands of candidates
+    per second at n = 1024.
+    """
+    shifts = sorted({s % n for s in offsets} - {0})
+    shifts = list({sh for s in shifts for sh in (s, n - s)})
+    reach = np.zeros(n, dtype=bool)
+    reach[0] = True
+    frontier = reach.copy()
+    total = 0
+    count = 1
+    d = 0
+    while count < n:
+        nxt = np.zeros(n, dtype=bool)
+        for s in shifts:
+            nxt |= np.roll(frontier, s)
+        newf = nxt & ~reach
+        c = int(newf.sum())
+        if c == 0:
+            return float("inf"), float("inf")
+        d += 1
+        total += d * c
+        count += c
+        reach |= newf
+        frontier = newf
+    return total / (n - 1), float(d)
+
+
+def circulant_search(
+    n: int,
+    k: int,
+    seed: int = 0,
+    n_iter: int = 300,
+    include_ring: bool = True,
+) -> SearchResult:
+    """Random-restart hillclimb over circulant offset sets.
+
+    Circulants are Hamiltonian (offset 1 in the set) with full rotational
+    symmetry — the subspace the paper searches for 252/256/264-vertex graphs.
+    Candidates are priced by ``_circulant_profile`` (implicit BFS on the
+    offset list, no graph construction), so 512/1024-vertex searches finish
+    in seconds.
+
+    Candidates are priced one at a time with the numpy pricer; the
+    reference's batched ``engine="jax"`` pricer returns the same values and
+    accepts in the same order, so the trajectory is the reference's at a
+    given seed whatever engine it used.
+    """
+    rng = np.random.default_rng(seed)
+    half = k // 2
+    has_anti = k % 2 == 1  # odd degree needs the antipodal offset n/2
+    if has_anti and n % 2:
+        raise ValueError("odd k needs even n")
+
+    def full_offsets(offsets) -> list[int]:
+        offs = ([1] if include_ring else []) + sorted(offsets)
+        if has_anti:
+            offs = offs + [n // 2]
+        return offs
+
+    def mpl_of(offsets) -> tuple[float, float]:
+        offs = full_offsets(offsets)
+        if len(set(offs)) != len(offs):
+            return float("inf"), float("inf")
+        return _circulant_profile(n, offs)
+
+    n_free = half - (1 if include_ring else 0)
+    lo, hi = 2, n // 2 - (1 if has_anti else 0)
+    pool = list(range(lo, hi))
+    if n_free > len(pool):
+        raise ValueError(f"degree {k} too large for circulant on {n} vertices")
+    best_offs: list[int] | None = None
+    best = (float("inf"), float("inf"))
+    history: list[float] = []
+    it = 0
+    restarts = max(1, n_iter // 50)
+    for _ in range(restarts):
+        offs = sorted(rng.choice(pool, size=n_free, replace=False).tolist()) if n_free else []
+        cur = mpl_of(offs)
+        improved = True
+        while improved and it < n_iter:
+            improved = False
+            for pos in range(len(offs)):
+                # exhaustive sweep of the position when affordable, else a
+                # random subsample (the paper's large-space regime)
+                cands = pool if len(pool) * len(offs) <= n_iter else \
+                    rng.permutation(pool)[: min(32, len(pool))]
+                cands = [int(c) for c in cands]
+                # price the unexamined tail against the current offsets,
+                # lazily; an acceptance mid-sweep restarts the tail against
+                # the new base
+                i = 0
+                while i < len(cands):
+                    tail = cands[i:]
+                    # one eligibility pass drives both the batch and its
+                    # consumption, so the vals iterator cannot desync:
+                    # trials[j] is None for skipped candidates (already in
+                    # offs, or duplicate full offsets — inf, never accepted)
+                    trials = []
+                    for c in tail:
+                        t = None if c in offs else \
+                            sorted(offs[:pos] + [c] + offs[pos + 1 :])
+                        if t is not None:
+                            fo = full_offsets(t)
+                            if len(set(fo)) != len(fo):
+                                t = None
+                        trials.append(t)
+                    vals = (_circulant_profile(n, full_offsets(t))
+                            for t in trials if t is not None)
+                    adv = len(tail)
+                    for j, trial in enumerate(trials):
+                        it += 1
+                        if trial is None:
+                            continue
+                        val = next(vals)
+                        if val < cur:
+                            offs, cur = trial, val
+                            improved = True
+                            adv = j + 1
+                            break
+                    i += adv
+            if cur < best:
+                best, best_offs = cur, list(offs)
+                history.append(best[0])
+        if cur < best:
+            best, best_offs = cur, list(offs)
+            history.append(best[0])
+    offs = full_offsets(best_offs or [])
+    g = circulant(n, offs, f"({n},{k})-Suboptimal")
+    return SearchResult(
+        graph=g,
+        mpl=best[0],
+        diameter=best[1],
+        mpl_lb=metrics.mpl_lower_bound(n, k),
+        d_lb=metrics.diameter_lower_bound(n, k),
+        iterations=it,
+        accepted=it,
+        history=history,
+        offsets=tuple(offs),
+    )
+
+
+# --------------------------------------------------------------------------------
+# Orbit moves
+# --------------------------------------------------------------------------------
+
+def _orbit(n: int, s: int, u: int, v: int) -> frozenset[tuple[int, int]]:
+    """Edge orbit of (u,v) under rotation by s (n/s-fold symmetry)."""
+    out = set()
+    t = 0
+    while t < n:
+        a, b = (u + t) % n, (v + t) % n
+        out.add((min(a, b), max(a, b)))
+        t += s
+    return frozenset(out)
+
+
+def _draw_orbit_swap(rng, work_list, work_chords, ring_edges, n, s, fold):
+    """Draw one 2-orbit swap against ``(work_list, work_chords)``.
+
+    Returns ``(i1, i2, no1, no2, new_edges, remaining)`` or None for an
+    invalid draw.  Consumes the PRNG exactly like the classic inline
+    single-move proposal, so the ``moves_per_step=1`` trajectory is
+    bit-identical to the historical one.
+    """
+    i1, i2 = rng.choice(len(work_list), size=2, replace=False)
+    o1, o2 = work_list[i1], work_list[i2]
+    (u1, v1) = next(iter(o1))
+    (u2, v2) = next(iter(o2))
+    # orbit-level swap with a random relative rotation of the second orbit
+    tshift = int(rng.integers(fold)) * s
+    if rng.integers(2):
+        na, nb = (u1, (v2 + tshift) % n), ((u2 + tshift) % n, v1)
+    else:
+        na, nb = (u1, (u2 + tshift) % n), (v1, (v2 + tshift) % n)
+    if na[0] == na[1] or nb[0] == nb[1]:
+        return None
+    no1, no2 = _orbit(n, s, *na), _orbit(n, s, *nb)
+    # orbit sizes must be conserved so degrees are conserved
+    if len(no1) + len(no2) != len(o1) + len(o2):
+        return None
+    remaining = work_chords - set(o1) - set(o2)
+    new_edges = set(no1) | set(no2)
+    if len(new_edges) != len(no1) + len(no2):
+        return None
+    if new_edges & (remaining | ring_edges):
+        return None
+    return int(i1), int(i2), no1, no2, new_edges, remaining
+
+
+def _circulant_orbits(n: int, s: int, offsets) -> set[frozenset[tuple[int, int]]]:
+    """Chord-edge orbits (under rotation by s) of circulant C_n(offsets).
+
+    Excludes the ring offset 1 — a circulant is invariant under every
+    rotation, so its chords decompose into orbits of the coarser rotation-by-s
+    subgroup, giving ``symmetric_sa_search`` a warm start.
+    """
+    orbits: set[frozenset[tuple[int, int]]] = set()
+    for o in sorted({x % n for x in offsets} - {0}):
+        if o in (1, n - 1):
+            continue
+        for u in range(s):
+            orbits.add(_orbit(n, s, u, (u + o) % n))
+    return orbits
+
+
+# --------------------------------------------------------------------------------
+# Device-priced replica polish
+# --------------------------------------------------------------------------------
+
+class _PolishChain:
+    """One replica of the device-priced orbit polish: host-side orbit state
+    plus the padded neighbour table the device sweep prices from.  Under
+    delta pricing the chain also holds its representative-row distance
+    state twice: ``dist`` on the host, which the batched lost-parent removal
+    test reads, and ``dist_t``, the same rows on the device, which the next
+    dispatch merges into; ``best_dist``/``best_dist_t`` are the snapshot
+    replica exchange restores from.  Both are rebound, never mutated in
+    place, so snapshots are safe by reference."""
+
+    __slots__ = ("rng", "orb_list", "chord_edges", "adj", "nbr",
+                 "cur_mpl", "cur_d", "best_orbits", "best_mpl", "best_d", "t",
+                 "dist", "best_dist", "dist_t", "best_dist_t")
+
+    def __init__(self, rng, orb_list, adj, t_start):
+        self.rng = rng
+        self.orb_list = list(orb_list)
+        self.chord_edges = {e for orb in orb_list for e in orb}
+        self.adj = adj
+        self.nbr = metrics._nbr_table(adj)
+        self.t = t_start
+        self.cur_mpl = self.cur_d = float("inf")
+        self.best_orbits = set(self.orb_list)
+        self.best_mpl = self.best_d = float("inf")
+        self.dist = self.best_dist = None
+        self.dist_t = self.best_dist_t = None
+
+    def set_dist(self, dist_t: torch.Tensor) -> None:
+        """Adopt ``dist_t`` (s, n) as the current rows, device and host."""
+        self.dist_t = dist_t
+        self.dist = dist_t.cpu().numpy()
+
+    def trial_nbr(self, removed, added) -> np.ndarray:
+        """Neighbour table of the proposal graph (degrees are conserved by
+        the orbit-size check, so kmax never grows)."""
+        for u, v in removed:
+            self.adj[u, v] = self.adj[v, u] = False
+        for u, v in added:
+            self.adj[u, v] = self.adj[v, u] = True
+        try:
+            out = self.nbr.copy()
+            for u in sorted({x for e in (*removed, *added) for x in e}):
+                ws = np.nonzero(self.adj[u])[0]
+                out[u, :] = -1
+                out[u, : len(ws)] = ws
+            return out
+        finally:
+            for u, v in added:
+                self.adj[u, v] = self.adj[v, u] = False
+            for u, v in removed:
+                self.adj[u, v] = self.adj[v, u] = True
+
+    def commit(self, removed, added, work_list, work_chords, nbr, mpl, d):
+        for u, v in removed:
+            self.adj[u, v] = self.adj[v, u] = False
+        for u, v in added:
+            self.adj[u, v] = self.adj[v, u] = True
+        self.nbr = nbr
+        self.orb_list, self.chord_edges = work_list, work_chords
+        self.cur_mpl, self.cur_d = mpl, d
+
+
+def _resync_check(chains, s: int, n: int) -> None:
+    """Drift guard for the delta-priced polish: re-sweep every chain's
+    current graph from scratch in one dispatch, on the device its rows live
+    on, and assert that both copies of the maintained incremental state
+    match it bit for bit.  Raises ``AssertionError`` on any divergence."""
+    base = torch.stack([ch.dist_t for ch in chains])
+    nbrs = np.stack([ch.nbr for ch in chains]).astype(np.int32, copy=False)
+    _, _, state = cuda_sweep.sharded_delta_state(
+        base, nbrs, [np.arange(s)] * len(chains), [None] * len(chains), n,
+        device=base.device)
+    for r, ch in enumerate(chains):
+        if not (torch.equal(state[r], ch.dist_t)
+                and np.array_equal(state[r].cpu().numpy(), ch.dist)):
+            raise AssertionError(
+                f"delta pricing drift: replica {r} incremental distance "
+                f"state diverged from the full re-sweep")
+
+
+def _replica_polish(
+    n: int,
+    k: int,
+    seed: int,
+    n_iter: int,
+    fold: int,
+    start_orbits,
+    replicas: int,
+    exchange_every: int = 50,
+    t_start: float = 0.05,
+    t_end: float = 1e-4,
+    delta: bool = True,
+    proposal_batch: int = 1,
+    resync_every: int = 64,
+    full_rebuild_frac: float = 0.9,
+    device=None,
+) -> SearchResult:
+    """Parallel-replica orbit polish with device-batched pricing.
+
+    ``replicas`` lockstep annealing chains share the circulant warm start,
+    each on its own PRNG stream (``[seed, r]``, replica 0 protected).  Every
+    iteration each chain draws ``proposal_batch`` orbit swaps; all R*M
+    proposals are priced in one dispatch and only per-proposal (total, max)
+    scalars come home.
+
+    With ``delta=True`` (default) the dispatch is ``sharded_delta_state``:
+    the host batched lost-parent test marks the rows a removal touches, the
+    device re-sweeps only those rows on the post-removal graph and min-plus
+    patches the added edges back in.  Proposals whose affected set exceeds
+    ``full_rebuild_frac`` of the rows (or whose base is disconnected) fall
+    back to a full re-sweep expressed in the same vocabulary.  Every
+    ``resync_every`` iterations (and at the end) ``_resync_check`` asserts
+    the incremental state has not drifted.  ``delta=False`` re-sweeps every
+    proposal (``sharded_rows_totals``); the trajectory is the same.
+
+    Batched proposals are accepted greedily in lockstep order: once a chain
+    accepts, the rest of its batch is discarded and consumes no RNG.  Every
+    ``exchange_every`` iterations the globally best state replaces the
+    worst non-protected chain.
+    """
+    if proposal_batch < 1:
+        raise ValueError(f"proposal_batch must be >= 1, got {proposal_batch}")
+    dev = resolve_device(device)
+    s = n // fold
+    gamma = math.exp(math.log(t_end / t_start) / n_iter)
+    ring_edges = {(i, (i + 1) % n) for i in range(n - 1)} | {(0, n - 1)}
+
+    def adj_of(orbs) -> np.ndarray:
+        a = np.zeros((n, n), dtype=bool)
+        for i, j in ring_edges:
+            a[i, j] = a[j, i] = True
+        for orb in orbs:
+            for i, j in orb:
+                a[i, j] = a[j, i] = True
+        return a
+
+    start = sorted(start_orbits, key=sorted)
+    chains = [_PolishChain(np.random.default_rng([seed, r]), start,
+                           adj_of(start), t_start)
+              for r in range(replicas)]
+    norm = s * (n - 1)
+    dispatches = 1
+    # all chains share the warm start: one pricing seeds cur/best
+    if delta:
+        tot0, mx0, st0 = cuda_sweep.sharded_delta_state(
+            torch.zeros((1, s, n), dtype=torch.int32, device=dev),
+            np.stack([chains[0].nbr]), [np.arange(s)], [None], n, device=dev)
+        for ch in chains:
+            ch.set_dist(st0[0])
+            ch.best_dist, ch.best_dist_t = ch.dist, ch.dist_t
+    else:
+        tot0, mx0 = cuda_sweep.sharded_rows_totals(
+            np.stack([chains[0].nbr]), s, n, device=dev)
+    mpl0 = tot0[0] / norm if mx0[0] < n else float("inf")
+    d0 = float(mx0[0]) if mx0[0] < n else float("inf")
+    for ch in chains:
+        ch.cur_mpl = ch.best_mpl = mpl0
+        ch.cur_d = ch.best_d = d0
+
+    mprop = proposal_batch
+    bsz = replicas * mprop
+    accepted = 0
+    evals_delta = evals_full = 0
+    history = [mpl0]
+    global_best = (mpl0, d0)
+    nbr_stack = np.empty((bsz,) + chains[0].nbr.shape, dtype=np.int32)
+    empty = np.empty(0, dtype=np.int64)
+    for it in range(n_iter):
+        proposals: list = [None] * bsz
+        srcs: list = [empty] * bsz
+        patches: list = [None] * bsz
+        for r, ch in enumerate(chains):
+            ch.t *= gamma
+            for m in range(mprop):
+                slot = r * mprop + m
+                nbr_stack[slot] = ch.nbr  # idle slots price the unchanged graph
+                if len(ch.orb_list) < 2:
+                    continue
+                mv = _draw_orbit_swap(ch.rng, ch.orb_list, ch.chord_edges,
+                                      ring_edges, n, s, fold)
+                if mv is None:
+                    continue
+                i1, i2, no1, no2, new_edges, remaining = mv
+                work_list = [o for idx, o in enumerate(ch.orb_list)
+                             if idx not in (i1, i2)] + [no1, no2]
+                work_chords = remaining | new_edges
+                removed = sorted(ch.chord_edges - work_chords)
+                added = sorted(work_chords - ch.chord_edges)
+                if delta:
+                    aff = metrics._removal_affected_nbr(ch.dist, ch.nbr,
+                                                        removed)
+                    full = (ch.cur_d == float("inf")
+                            or int(aff.sum()) > full_rebuild_frac * s)
+                    if full:
+                        nbr_stack[slot] = ch.trial_nbr(removed, added)
+                        srcs[slot] = np.arange(s)
+                        evals_full += 1
+                    else:
+                        # re-sweep only the affected rows on the post-removal
+                        # graph; the added edges come back as a min-plus patch
+                        nbr_stack[slot] = ch.trial_nbr(removed, ())
+                        srcs[slot] = np.nonzero(aff)[0]
+                        patches[slot] = added
+                        evals_delta += 1
+                    proposals[slot] = (removed, added, work_list, work_chords,
+                                       None)
+                else:
+                    nbr_stack[slot] = tn = ch.trial_nbr(removed, added)
+                    evals_full += 1
+                    proposals[slot] = (removed, added, work_list, work_chords,
+                                       tn)
+        if any(p is not None for p in proposals):
+            if delta:
+                totals, maxima, states = cuda_sweep.sharded_delta_state(
+                    torch.stack([ch.dist_t for ch in chains]), nbr_stack, srcs,
+                    patches, n, device=dev)
+            else:
+                totals, maxima = cuda_sweep.sharded_rows_totals(
+                    nbr_stack, s, n, device=dev)
+                states = None
+            dispatches += 1
+            for r, ch in enumerate(chains):
+                committed = False
+                for m in range(mprop):
+                    slot = r * mprop + m
+                    if proposals[slot] is None or committed:
+                        continue  # discarded batch slots consume no RNG
+                    new_mpl = (totals[slot] / norm if maxima[slot] < n
+                               else float("inf"))
+                    new_d = (float(maxima[slot]) if maxima[slot] < n
+                             else float("inf"))
+                    dm = new_mpl - ch.cur_mpl
+                    if not (dm < 0
+                            or ch.rng.random() < math.exp(-dm / max(ch.t, 1e-12))):
+                        continue
+                    removed, added, work_list, work_chords, tn = proposals[slot]
+                    if tn is None:  # delta slots carry the post-removal table
+                        tn = ch.trial_nbr(removed, added)
+                    ch.commit(removed, added, work_list, work_chords, tn,
+                              new_mpl, new_d)
+                    if delta:
+                        # only the accepted slot's rows leave the batch (a
+                        # clone, so the batch itself can be freed)
+                        ch.set_dist(states[slot].clone())
+                    committed = True
+                    accepted += 1
+                    if (ch.cur_mpl, ch.cur_d) < (ch.best_mpl, ch.best_d):
+                        ch.best_orbits = set(ch.orb_list)
+                        ch.best_mpl, ch.best_d = ch.cur_mpl, ch.cur_d
+                        if delta:
+                            ch.best_dist, ch.best_dist_t = ch.dist, ch.dist_t
+                        if (ch.best_mpl, ch.best_d) < global_best:
+                            global_best = (ch.best_mpl, ch.best_d)
+                            history.append(ch.best_mpl)
+            states = None
+            if replicas > 1 and (it + 1) % exchange_every == 0 and it + 1 < n_iter:
+                gb = min(range(replicas),
+                         key=lambda r: (chains[r].best_mpl, chains[r].best_d, r))
+                worst = max(range(1, replicas),
+                            key=lambda r: (chains[r].cur_mpl, chains[r].cur_d, -r))
+                if (chains[gb].best_mpl, chains[gb].best_d) < \
+                        (chains[worst].cur_mpl, chains[worst].cur_d):
+                    ch = chains[worst]
+                    ch.orb_list = sorted(chains[gb].best_orbits, key=sorted)
+                    ch.chord_edges = {e for orb in ch.orb_list for e in orb}
+                    ch.adj = adj_of(ch.orb_list)
+                    ch.nbr = metrics._nbr_table(ch.adj)
+                    ch.cur_mpl, ch.cur_d = chains[gb].best_mpl, chains[gb].best_d
+                    if delta:
+                        ch.dist = chains[gb].best_dist
+                        ch.dist_t = chains[gb].best_dist_t
+        if delta and (it + 1 == n_iter
+                      or (resync_every and (it + 1) % resync_every == 0)):
+            _resync_check(chains, s, n)
+            dispatches += 1
+
+    gb = min(range(replicas),
+             key=lambda r: (chains[r].best_mpl, chains[r].best_d, r))
+    best = chains[gb]
+    edges = set(ring_edges)
+    for orb in best.best_orbits:
+        edges |= set(orb)
+    g = from_edges(n, edges, f"({n},{k})-Suboptimal")
+    return SearchResult(
+        graph=g,
+        mpl=best.best_mpl,
+        diameter=best.best_d,
+        mpl_lb=metrics.mpl_lower_bound(n, k),
+        d_lb=metrics.diameter_lower_bound(n, k),
+        iterations=n_iter,
+        accepted=accepted,
+        history=history,
+        replicas=replicas,
+        evals_delta=evals_delta,
+        evals_full=evals_full,
+        device_dispatches=dispatches,
+    )
+
+
+# --------------------------------------------------------------------------------
+# Driver
+# --------------------------------------------------------------------------------
+
+def large_search(
+    n: int,
+    k: int,
+    seed: int = 0,
+    budget: int | None = None,
+    fold: int = 4,
+    polish: bool = True,
+    replicas: int = 1,
+    exchange_every: int = 50,
+    delta: bool = True,
+    proposal_batch: int = 1,
+    resync_every: int = 64,
+    polish_iters: int | None = None,
+    device=None,
+) -> SearchResult:
+    """Large-N tier: circulant warm start, then the device-priced replica
+    polish warm-started from it (when ``fold`` divides ``n``).
+
+    Returns whichever of the two stages found the lower (MPL, diameter).  A
+    pinned offset set in ``KNOWN_CIRCULANT_OFFSETS`` skips the hillclimb
+    (seed 0 only).  The polish runs ``replicas`` lockstep annealing chains
+    (``replicas >= 2``; see ``_replica_polish``) for ``polish_iters``
+    iterations, or ``max(200, 2 * budget)``.
+
+    ``device`` is where the polish prices: ``None`` is the CUDA device (and
+    raises without one), ``"cpu"`` runs the kernels' plain versions.  The
+    reference's ``engine=`` has no counterpart.  ``replicas=1``, which the
+    reference routes to ``symmetric_sa_search``, is not ported yet and
+    raises ``NotImplementedError``.  Errors in the polish propagate; the
+    reference instead returns the unpolished circulant on a RuntimeError or
+    ValueError.
+    """
+    dev = resolve_device(device)
+    if polish and n % fold == 0 and replicas < 2:
+        raise NotImplementedError(
+            "large_search(replicas=1) polishes with symmetric_sa_search, "
+            "which the port does not have yet (ROADMAP Queue 1, item 7: "
+            "symmetric_sa_search and its row engine); pass replicas >= 2")
+    pinned = KNOWN_CIRCULANT_OFFSETS.get((n, k)) if seed == 0 else None
+    if pinned is not None:
+        mpl_c, d_c = _circulant_profile(n, pinned)
+        res_c = SearchResult(
+            graph=circulant(n, pinned, f"({n},{k})-Suboptimal"),
+            mpl=mpl_c, diameter=d_c,
+            mpl_lb=metrics.mpl_lower_bound(n, k),
+            d_lb=metrics.diameter_lower_bound(n, k),
+            iterations=0, accepted=0, history=[mpl_c], offsets=tuple(pinned))
+    else:
+        res_c = circulant_search(n, k, seed=seed, n_iter=budget or 400)
+    if not polish or n % fold or res_c.offsets is None:
+        return res_c
+    n_polish = (polish_iters if polish_iters is not None
+                else max(200, (budget or 400) * 2))
+    orbits = _circulant_orbits(n, n // fold, res_c.offsets)
+    res_s = _replica_polish(
+        n, k, seed=seed, n_iter=n_polish, fold=fold, start_orbits=orbits,
+        replicas=replicas, exchange_every=exchange_every, delta=delta,
+        proposal_batch=proposal_batch, resync_every=resync_every, device=dev)
+    return res_s if (res_s.mpl, res_s.diameter) < (res_c.mpl, res_c.diameter) else res_c

@@ -1,0 +1,78 @@
+"""Rules of the PyTorch port as a package: it imports neither JAX nor the
+JAX package, and it runs on the CUDA device unless the caller asks for the
+CPU."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch import device as port_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "src", "repro_torch")
+
+
+def _port_files():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = _port_files()
+    assert len(files) >= 12
+    bad = {(os.path.relpath(p, REPO), mod) for p in files
+           for mod in _imported_roots(p) if mod in ("jax", "jaxlib", "repro")}
+    assert not bad, f"forbidden imports: {sorted(bad)}"
+
+
+def test_importing_port_loads_neither_jax_nor_repro():
+    code = ("import sys, repro_torch, repro_torch.convert, "
+            "repro_torch.core.search, repro_torch.kernels._build; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": os.path.join(REPO, "src")})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_resolve_device_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_device.resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_device.resolve_device("cuda")
+    assert port_device.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        port_device.resolve_device("meta")
+    from repro_torch.core import search
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        search.large_search(64, 4, replicas=2, polish_iters=2)
+
+
+def test_chip_smoke_refuses_to_run_without_cuda_or_outside_a_checkout(tmp_path):
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=120, env=env)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text(open(os.path.join(REPO, "chip_smoke.py")).read())
+    proc = subprocess.run([sys.executable, str(lone)], capture_output=True,
+                          text=True, timeout=120, cwd=tmp_path, env=env)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
