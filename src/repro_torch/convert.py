@@ -1,6 +1,8 @@
-"""Carry search state from the reference package into the port.
+"""Carry state from the reference package into the port: a model's weights
+(``params_from_reference``) and a replica-polish chain's search state
+(``chain_state_from_reference``).
 
-Here the "weights" are search state: a replica-polish chain is its padded
+For the search, the "weights" are search state: a replica-polish chain is its padded
 neighbour table, its (s, n) int32 representative-row distances and its
 orbit list.  ``chain_state_from_reference`` turns the reference's numpy
 state into a port ``_PolishChain`` whose rows live on ``device``, so both
@@ -14,7 +16,45 @@ import torch
 from .core.search import _PolishChain
 from .device import resolve_device
 
-__all__ = ["chain_state_from_reference"]
+__all__ = ["chain_state_from_reference", "params_from_reference"]
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a torch tensor of the same dtype; bfloat16 arrays
+    (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects) go through
+    their uint16 bits, never through float32."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def params_from_reference(cfg, params: dict) -> dict:
+    """The port's state dict for the reference's param tree, given as numpy
+    arrays (``jax.tree.map(np.asarray, params)``).  Stacked per-layer
+    weights (leading layer axis) are unstacked into ``mamba.<i>.<name>``;
+    the rest keeps the tree's path, joined with dots.  Load it with
+    ``model.init(...).load_state_dict(sd)`` (the family must be ported:
+    ``hybrid``)."""
+    if cfg.family != "hybrid":
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not ported yet; see ROADMAP.md, Queue 1")
+    sd: dict[str, torch.Tensor] = {}
+    for name, a in params["mamba"].items():
+        if a.shape[0] != cfg.n_layers:
+            raise ValueError(f"mamba.{name} has {a.shape[0]} layers, expected {cfg.n_layers}")
+        for i in range(cfg.n_layers):
+            sd[f"mamba.{i}.{name}"] = _tensor(a[i])
+
+    def flat(prefix: str, tree) -> None:
+        if isinstance(tree, dict):
+            for key, sub in tree.items():
+                flat(f"{prefix}.{key}" if prefix else key, sub)
+        else:
+            sd[prefix] = _tensor(tree)
+
+    flat("", {k: v for k, v in params.items() if k != "mamba"})
+    return sd
 
 
 def chain_state_from_reference(nbr: np.ndarray, dist: np.ndarray, orb_list,

@@ -292,25 +292,6 @@ def patch_apply_ref(dist, tmp, crows):
 _WORD_DTYPES = (torch.int32, torch.uint32)
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, dtypes, device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _raise_on(err: int, kernel: str) -> None:
-    if err:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {err} "
-                           f"({_build.error_string(err)})")
-
-
 def sweep(nb: torch.Tensor, vm: torch.Tensor, F0: torch.Tensor,
           sentinel: int) -> torch.Tensor:
     """Batched packed BFS sweep: (b, n, kmax) gather table, (b, n, kmax)
@@ -324,9 +305,9 @@ def sweep(nb: torch.Tensor, vm: torch.Tensor, F0: torch.Tensor,
     b, n, kmax = nb.shape
     sw_pad = F0.shape[2]
     dev = nb.device
-    _check("nb", nb, (b, n, kmax), (torch.int32,), dev)
-    _check("vm", vm, (b, n, kmax), _WORD_DTYPES, dev)
-    _check("F0", F0, (b, n, sw_pad), _WORD_DTYPES, dev)
+    _build.check_tensor("nb", nb, (b, n, kmax), (torch.int32,), dev)
+    _build.check_tensor("vm", vm, (b, n, kmax), _WORD_DTYPES, dev)
+    _build.check_tensor("F0", F0, (b, n, sw_pad), _WORD_DTYPES, dev)
     vm, F0 = vm.view(torch.int32), F0.view(torch.int32)
     if dev.type == "cpu":
         return sweep_rows_ref(nb, vm, F0, sentinel)
@@ -341,7 +322,7 @@ def sweep(nb: torch.Tensor, vm: torch.Tensor, F0: torch.Tensor,
         nb.data_ptr(), vm.data_ptr(), F0.data_ptr(), out.data_ptr(),
         b, n, kmax, sw_pad, int(sentinel),
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "bfs_sweep_kernel")
+    _build.raise_on_error(err, "bfs_sweep_kernel")
     sweep.launches += 1
     return out
 
@@ -361,9 +342,9 @@ def patch_apply(dist: torch.Tensor, tmp: torch.Tensor,
     b, s, n = dist.shape
     mmax = crows.shape[1]
     dev = dist.device
-    _check("dist", dist, (b, s, n), (torch.int32,), dev)
-    _check("tmp", tmp, (b, s, mmax), (torch.int32,), dev)
-    _check("crows", crows, (b, mmax, n), (torch.int32,), dev)
+    _build.check_tensor("dist", dist, (b, s, n), (torch.int32,), dev)
+    _build.check_tensor("tmp", tmp, (b, s, mmax), (torch.int32,), dev)
+    _build.check_tensor("crows", crows, (b, mmax, n), (torch.int32,), dev)
     if dev.type == "cpu":
         return patch_apply_ref(dist, tmp, crows)
     if dev.type != "cuda":
@@ -372,7 +353,7 @@ def patch_apply(dist: torch.Tensor, tmp: torch.Tensor,
     err = _build.library().minplus_patch_launch(
         dist.data_ptr(), tmp.data_ptr(), crows.data_ptr(), out.data_ptr(),
         b, s, n, mmax, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "minplus_patch_kernel")
+    _build.raise_on_error(err, "minplus_patch_kernel")
     patch_apply.launches += 1
     return out
 

@@ -1,0 +1,178 @@
+"""Zamba2-style hybrid: a Mamba2 backbone with ONE shared attention block
+applied every ``shared_attn_every`` layers, its weights reused at each
+application (the port's copy of ``repro.models.hybrid``, serving path).
+
+Layer layout for 54 layers, period 6 (9 stages):
+    [6 x mamba] -> shared-attn -> [6 x mamba] -> shared-attn -> ...
+
+Decode state: per-layer SSM and conv states plus one KV cache per stage:
+each application of the shared block sees a different depth, so the caches
+are distinct though the weights are shared.  The reference's ``lax.scan``
+over stages and layers is a Python loop here; loss and training are not
+ported yet (ROADMAP, Queue 1).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from .common import DTYPES, Initializer, ParamModule, rms_norm, swiglu
+from .ssm import MambaBlock, init_ssm_state, mamba_block, mamba_decode_step
+from .transformer import _attn_params, _mlp_params, attn_block, attn_block_decode, padded_dims
+
+__all__ = [
+    "SharedBlock",
+    "HybridLM",
+    "init_hybrid",
+    "hybrid_forward",
+    "hybrid_init_cache",
+    "hybrid_prefill",
+    "hybrid_decode_step",
+]
+
+
+def _stages(cfg: ArchConfig) -> tuple[int, int]:
+    period = cfg.shared_attn_every
+    if period <= 0 or cfg.n_layers % period:
+        raise ValueError(f"n_layers={cfg.n_layers} is not a multiple of "
+                         f"shared_attn_every={period}")
+    return cfg.n_layers // period, period
+
+
+class SharedBlock(ParamModule):
+    """The shared attention + SwiGLU block: ``attn`` (wq, wk, wv, wo), ``mlp``
+    (w1, w3, w2), ``ln1`` and ``ln2``."""
+
+    def __init__(self, attn: dict, mlp: dict, ln1: torch.Tensor, ln2: torch.Tensor):
+        super().__init__(ln1=ln1, ln2=ln2)
+        self.attn = ParamModule(**attn)
+        self.mlp = ParamModule(**mlp)
+
+
+class HybridLM(ParamModule):
+    """The hybrid model's weights: ``embed`` (vocab_padded, d), ``mamba`` (a
+    ModuleList of the n_layers Mamba blocks), ``shared``, ``final_norm`` and
+    ``head`` (d, vocab_padded).  Its state dict names follow the
+    reference's tree with the layer axis unstacked (``mamba.<i>.in_proj``)."""
+
+    def __init__(self, embed, mamba: list, shared: SharedBlock, final_norm, head):
+        super().__init__(embed=embed, final_norm=final_norm, head=head)
+        self.mamba = nn.ModuleList(mamba)
+        self.shared = shared
+
+
+def init_hybrid(cfg: ArchConfig, seed: int, device) -> HybridLM:
+    hp, kvp, vp = padded_dims(cfg)
+    hd = cfg.resolved_head_dim
+    d, f = cfg.d_model, cfg.d_ff
+    ini = Initializer(seed, DTYPES[cfg.dtype], device)
+    embed = ini.normal((vp, d), stddev=1.0)
+    mamba = [MambaBlock.init(ini, cfg) for _ in range(cfg.n_layers)]
+    shared = SharedBlock(_attn_params(ini, d, hp, kvp, hd, cfg.qk_norm),
+                         _mlp_params(ini, d, f), ini.ones((d,)), ini.ones((d,)))
+    return HybridLM(embed, mamba, shared, ini.ones((d,)), ini.normal((d, vp)))
+
+
+def _shared_block(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
+    h, kv = attn_block(p["attn"], rms_norm(x, p["ln1"]), positions, cfg)
+    x = x + h
+    mlp = p["mlp"]
+    x = x + swiglu(rms_norm(x, p["ln2"]), mlp["w1"], mlp["w3"], mlp["w2"])
+    return x, kv
+
+
+def _positions(b: int, seq: int, device) -> torch.Tensor:
+    return torch.arange(seq, dtype=torch.int32, device=device)[None].expand(b, seq)
+
+
+def hybrid_forward(params: HybridLM, tokens: torch.Tensor, cfg: ArchConfig,
+                   collect: bool = False):
+    """Full-sequence forward.  Returns (x, per-layer (ssm, conv) states,
+    per-stage shared-block (k, v)); the lists are empty unless ``collect``."""
+    n_stage, period = _stages(cfg)
+    x = params["embed"][tokens]
+    b, seq = x.shape[:2]
+    positions = _positions(b, seq, x.device)
+    states, kvs = [], []
+    for stage in range(n_stage):
+        for j in range(period):
+            x, st, cv = mamba_block(params["mamba"][stage * period + j], x, cfg)
+            if collect:
+                states.append((st, cv))
+        x, kv = _shared_block(params["shared"], x, positions, cfg)
+        if collect:
+            kvs.append(kv)
+    return x, states, kvs
+
+
+def hybrid_init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+                      dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+    n_stage, _ = _stages(cfg)
+    _, kvp, _ = padded_dims(cfg)
+    hd = cfg.resolved_head_dim
+    return {
+        **init_ssm_state(cfg, cfg.n_layers, batch, device),
+        "k": torch.zeros((n_stage, batch, kvp, max_seq, hd), dtype=dtype, device=device),
+        "v": torch.zeros((n_stage, batch, kvp, max_seq, hd), dtype=dtype, device=device),
+        "index": 0,
+    }
+
+
+def hybrid_prefill(params: HybridLM, tokens: torch.Tensor, cfg: ArchConfig, max_seq: int):
+    """A full forward that also records the SSM states and the shared KV.
+    Returns (last-position logits (b, 1, vocab_padded), cache)."""
+    x, states, kvs = hybrid_forward(params, tokens, cfg, collect=True)
+    b, seq = tokens.shape
+    if seq > max_seq:
+        raise ValueError(f"prompt of {seq} tokens exceeds max_seq={max_seq}")
+    x = rms_norm(x, params["final_norm"])
+    logits = torch.einsum("bsd,dv->bsv", x[:, -1:], params["head"])
+    k0 = kvs[0][0]
+    kv_shape = (len(kvs), b, k0.shape[2], max_seq, k0.shape[3])
+    cache = {
+        "ssm": torch.stack([st for st, _ in states]),
+        "conv": torch.stack([cv for _, cv in states]).to(torch.bfloat16),
+        "k": torch.zeros(kv_shape, dtype=k0.dtype, device=x.device),
+        "v": torch.zeros(kv_shape, dtype=k0.dtype, device=x.device),
+        "index": seq,
+    }
+    for i, (k, v) in enumerate(kvs):
+        cache["k"][i, :, :, :seq] = k.transpose(1, 2)
+        cache["v"][i, :, :, :seq] = v.transpose(1, 2)
+    return logits, cache
+
+
+def hybrid_decode_step(params: HybridLM, tokens: torch.Tensor, cache: dict, cfg: ArchConfig):
+    """One token per lane.  Updates ``cache`` in place (the reference returns
+    a new cache) and returns (logits (b, 1, vocab_padded), cache).  The conv
+    state takes the promoted dtype of the cached state and the activations,
+    as the reference's does (float32 after the first step of a float32
+    model, though a prefill leaves it bf16)."""
+    n_stage, period = _stages(cfg)
+    idx = int(cache["index"])
+    if idx >= cache["k"].shape[3]:
+        raise ValueError(f"KV cache full: index {idx} of {cache['k'].shape[3]} slots")
+    x = params["embed"][tokens]
+    b = x.shape[0]
+    position = torch.full((b, 1), idx, dtype=torch.int32, device=x.device)
+    conv_dt = torch.promote_types(cache["conv"].dtype, x.dtype)
+    if cache["conv"].dtype != conv_dt:
+        cache["conv"] = cache["conv"].to(conv_dt)
+    shared = params["shared"]
+    for stage in range(n_stage):
+        for j in range(period):
+            layer = stage * period + j
+            x, st, cv = mamba_decode_step(params["mamba"][layer], x, cache["ssm"][layer],
+                                          cache["conv"][layer], cfg)
+            cache["ssm"][layer] = st
+            cache["conv"][layer] = cv
+        h, _, _ = attn_block_decode(shared["attn"], rms_norm(x, shared["ln1"]), position,
+                                    idx, cache["k"][stage], cache["v"][stage], cfg)
+        x = x + h
+        mlp = shared["mlp"]
+        x = x + swiglu(rms_norm(x, shared["ln2"]), mlp["w1"], mlp["w3"], mlp["w2"])
+    x = rms_norm(x, params["final_norm"])
+    logits = torch.einsum("bsd,dv->bsv", x, params["head"])
+    cache["index"] = idx + 1
+    return logits, cache

@@ -41,7 +41,9 @@ def test_port_imports_neither_jax_nor_repro():
 
 def test_importing_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.convert, "
-            "repro_torch.core.search, repro_torch.kernels._build; "
+            "repro_torch.core.search, repro_torch.kernels._build, "
+            "repro_torch.kernels.ops, repro_torch.configs, repro_torch.models, "
+            "repro_torch.serve, repro_torch.launch.serve; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -64,6 +66,23 @@ def test_resolve_device_never_falls_back(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         search.large_search(64, 4, replicas=2, polish_iters=2)
+
+
+def test_serving_entry_points_need_cuda_by_default(monkeypatch):
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config(get_config("zamba2-2.7b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(get_config("zamba2-2.7b"))
+    # the launcher (ServingEngine behind it) runs on the card unless asked
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_serve.main(["--requests", "1", "--slots", "1"])
+    assert build_model(cfg, device="cpu").device == torch.device("cpu")
 
 
 def test_chip_smoke_refuses_to_run_without_cuda_or_outside_a_checkout(tmp_path):
