@@ -9,8 +9,9 @@ Phases, in order; any failure raises and exits non-zero:
 2. build the CUDA kernels with nvcc (timed);
 3. ``bfs_sweep_kernel`` against its plain PyTorch version, bit for bit: the
    pinned (8192, 8) circulant and three more (8192, <=8) graphs, one of them
-   disconnected, from its 2048 representative sources; then a delta-shaped
-   batch of 32 proposals with few affected rows each;
+   disconnected, from its 2048 representative sources; then the shape of a
+   polish dispatch, a delta batch of 32 connected graphs with few affected
+   rows each, whose times and bound are the kernel's row;
 4. ``minplus_patch_kernel`` against its plain version at the main path's
    shape (b=32, s=2048, n=8192, mmax=8);
 5. the main path, ``large_search(8192, 8, replicas=8, proposal_batch=4,
@@ -19,11 +20,14 @@ Phases, in order; any failure raises and exits non-zero:
    same trajectory as delta=True over the same iterations;
 6. the same search at (2048, 6) on the card and on the CPU (the kernels'
    plain versions): every field must be equal;
-7. ``flash_attention_kernel`` against its plain version at the serving
-   shape (b=4, h=kv=32, s=1024, hd=80, bf16, causal), at a GQA,
-   ``q_offset`` and ragged case (h=32, kv=8, sq=200, skv=328) in bf16 and
-   fp32, and at head dims 16, 64, 112 and 128, with
-   ``scaled_dot_product_attention`` timed beside it as a yardstick;
+7. the wgmma fragment layouts of ``flash_attention_kernel`` (bf16), then
+   the kernel and ``flash_attention_fp32_kernel`` against their plain
+   version at the serving shape (b=4, h=kv=32, s=1024, hd=80, bf16,
+   causal), at a GQA, ``q_offset`` and ragged case (h=32, kv=8, sq=200,
+   skv=328) in bf16 and fp32, at head dims 16, 64, 112 and 128 in both
+   dtypes, non-causal, on a ragged 19-row tile and with keys ending inside
+   a tile, with ``scaled_dot_product_attention`` timed beside it as a
+   yardstick;
 8. ``ssd_intra_chunk_kernel`` against its plain version at the serving
    shape (b*h=320, s=1024, p=n=64, chunk 256, bf16 x/B/C) and at six
    smaller shapes (p 8..128, n 16..128, chunks 8..256);
@@ -38,8 +42,9 @@ Phases, in order; any failure raises and exits non-zero:
     the same greedy tokens.
 
 It prints one ``{"kernels": [...]}`` JSON line (per kernel: launches on the
-main path, the largest difference from the plain version, kernel and plain
-times from CUDA events, and the least time the card could take), then the
+main path, the largest difference from the plain version, kernel, plain and
+library times from CUDA events around a run of calls, and the least time
+the card could take), then the
 ``{"ok": true, "device": {...}}`` line last.  It imports nothing of JAX or
 of the JAX package ``repro``.  Without CUDA, or outside a checkout, it exits
 non-zero and prints no result.
@@ -77,8 +82,12 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median device time of ``fn`` in ms (CUDA events), after one warm-up."""
+def cuda_ms(fn, reps: int = 5, n: int = 10) -> float:
+    """Device time of one call of ``fn`` in ms: CUDA events around ``n``
+    calls enqueued back to back behind one more, so that the device is busy
+    from the first event on and the host's time to launch a call hides
+    behind the device's work (as it does on the main path), over ``n``; the
+    median of ``reps`` such runs, after one warm-up."""
     import torch
 
     fn()
@@ -87,11 +96,13 @@ def cuda_ms(fn, reps: int = 5) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
+        a.record()
+        for _ in range(n):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / n)
     return float(np.median(times))
 
 
@@ -163,17 +174,19 @@ def phase_sweep(n: int = 8192, s: int = 2048) -> dict:
           "pinned circulant rows disagree with the host profile")
     check(bool((got[3, :s] == n).any()) and not bool((got[0, :s] == n).any()),
           "sentinel rows wrong")
-    ms = cuda_ms(lambda: bs.sweep(nb, vm, F0, n))
-    plain_ms = cuda_ms(lambda: bs.sweep_rows_ref(nb, vm, F0, n), reps=3)
+    ms_full = cuda_ms(lambda: bs.sweep(nb, vm, F0, n), n=1)
     b = nbrs.shape[0]
     levels = [int(got[g][got[g] < n].max()) + 1 for g in range(b)]
     nbytes = (nb.numel() + vm.numel() + F0.numel() + got.numel()) * 4
     nops = sum(lv * n * kmax * sw_pad * 2 for lv in levels)  # AND + OR per gather
-    bms, by, terms = bound(nbytes, [(nops, INT32_OPS_PER_S)])
-    log(f"[3] sweep b={b} n={n} sw_pad={sw_pad}: bit-exact; kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({terms}); levels {levels}")
+    bms_full, _, terms = bound(nbytes, [(nops, INT32_OPS_PER_S)])
+    log(f"[3] sweep b={b} n={n} sw_pad={sw_pad}: bit-exact; kernel {ms_full:.3f} ms, bound "
+        f"{bms_full:.3f} ms ({terms}); levels {levels} (the fourth graph is disconnected: "
+        f"a bit-exactness check, not a shape the polish prices)")
 
-    # delta-shaped: 32 post-removal tables, a few affected rows each, some none
+    # the shape of a polish dispatch: 32 post-removal tables, a few affected
+    # rows each, some none (here of connected circulants of degree 8, 6 and
+    # 4, where the polish prices degree-8 graphs); this batch is the row
     rng = np.random.default_rng(0)
     nbrs32 = nbrs[np.arange(32) % 3]
     srcs = [np.sort(rng.choice(s, size=int(rng.integers(0, 48)), replace=False))
@@ -186,8 +199,16 @@ def phase_sweep(n: int = 8192, s: int = 2048) -> dict:
     torch.cuda.synchronize()
     check(torch.equal(got2, want2), "bfs_sweep_kernel != sweep_rows_ref (delta batch)")
     err = max(err, int((got2 - want2).abs().max()))
-    ms2 = cuda_ms(lambda: bs.sweep(nb2, vm2, F02, n))
-    log(f"    delta batch b=32 sw_pad={sw2}: bit-exact; kernel {ms2:.3f} ms")
+    ms = cuda_ms(lambda: bs.sweep(nb2, vm2, F02, n))
+    plain_ms = cuda_ms(lambda: bs.sweep_rows_ref(nb2, vm2, F02, n), reps=3, n=1)
+    # levels each graph's sources need (0 for a graph with none)
+    levels2 = [int(got2[g][got2[g] < n].max()) + 1 if bool((got2[g] < n).any()) else 0
+               for g in range(got2.shape[0])]
+    nbytes2 = (nb2.numel() + vm2.numel() + F02.numel() + got2.numel()) * 4
+    nops2 = sum(lv * n * kmax * sw2 * 2 for lv in levels2)
+    bms, by, terms2 = bound(nbytes2, [(nops2, INT32_OPS_PER_S)])
+    log(f"    delta batch b=32 sw_pad={sw2}: bit-exact; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({terms2}); levels {sorted(set(levels2))}")
     return {"name": "bfs_sweep_kernel", "route": "cuda", "source": SWEEP_SOURCE,
             "replaces": "src/repro/kernels/bfs_sweep.py:133", "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
@@ -214,7 +235,7 @@ def phase_patch(b: int = 32, s: int = 2048, n: int = 8192, mmax: int = 8) -> dic
     check(not torch.equal(got, dist), "patch changed nothing: inputs too weak")
     err = int((got - want).abs().max())
     ms = cuda_ms(lambda: bs.patch_apply(dist, tmp, crows))
-    plain_ms = cuda_ms(lambda: bs.patch_apply_ref(dist, tmp, crows), reps=3)
+    plain_ms = cuda_ms(lambda: bs.patch_apply_ref(dist, tmp, crows), reps=3, n=1)
     nbytes = (2 * dist.numel() + tmp.numel() + crows.numel()) * 4
     # add + min per endpoint
     bms, by, terms = bound(nbytes, [(2 * b * s * n * mmax, INT32_OPS_PER_S)])
@@ -365,26 +386,53 @@ def _attn_pairs(sq: int, skv: int, q_offset: int, causal: bool) -> int:
 
 
 def phase_flash(b: int = 4, h: int = 32, s: int = 1024, hd: int = 80) -> dict:
-    """flash_attention_kernel against its plain version on the card."""
+    """flash_attention_kernel (bf16) and flash_attention_fp32_kernel against
+    their plain version on the card, after a check of the wgmma fragment
+    layouts the bf16 kernel rests on."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=DEV).manual_seed(1)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
+
+    # the fragment layouts: S = q k^T and bf16(S) v from the kernel's own
+    # loads, descriptors and products, each register written where the
+    # kernel takes it to lie; the products are exact, so only the order of
+    # the fp32 sums differs (1e-5 of the largest value; a misplaced register
+    # is off by the values themselves)
+    for hd_ in (16, 24, 80, 128):
+        q, k, v = (rnd(r, hd_).to(torch.bfloat16) for r in (64, 128, 128))
+        s_k, o_k = fa.wgmma_layout_probe(q, k, v)
+        s_ref = q.float() @ k.float().T
+        o_ref = s_k.bfloat16().float() @ v.float()
+        torch.cuda.synchronize()
+        err_s = float((s_k - s_ref).abs().max())
+        err_o = float((o_k[:, :hd_] - o_ref).abs().max())
+        tol_s = 1e-5 * float(s_ref.abs().max())
+        tol_o = 1e-5 * float(o_ref.abs().max())
+        check(err_s <= tol_s and err_o <= tol_o and not bool(o_k[:, hd_:].any()),
+              f"wgmma fragment layout wrong at hd={hd_}: S {err_s} (tol {tol_s}), "
+              f"O {err_o} (tol {tol_o})")
+        log(f"[7] wgmma fragment layout hd={hd_}: S err {err_s:.3g} (tol {tol_s:.3g}), "
+            f"bf16(S) V err {err_o:.3g} (tol {tol_o:.3g})")
 
     def qkv(b_, h_, kv_, sq, skv, hd_, dtype):
-        mk = lambda *shape: torch.randn(shape, generator=gen, device=DEV).to(dtype)
+        mk = lambda *shape: rnd(*shape).to(dtype)
         return mk(b_, h_, sq, hd_), mk(b_, kv_, skv, hd_), mk(b_, kv_, skv, hd_)
 
     # bf16 output: the kernel and the plain version both sum in fp32, in
-    # other orders, then round; allow a few bf16 ulps of |out| <= 4
+    # other orders, and the kernel rounds P to bf16 before P V, then both
+    # round; allow a few bf16 ulps of |out| <= 4
     tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
     errs = []
     f32, b16 = torch.float32, torch.bfloat16
     # the serving shape; GQA with q_offset and ragged lengths; then the head
     # dims of the reference's kernel cases (64, 112, 128) and of the reduced
-    # config (16), so every head-dim template the model can reach is run
+    # config (16), in fp32 and bf16, so every head-dim template the model
+    # can reach is run; non-causal, a ragged 19-row tile and a q_offset case
+    # whose keys end inside a 128-key tile
     cases = [(b, h, h, s, s, hd, 0, b16, True),
              (2, h, 8, 200, 328, hd, 128, b16, True),
              (2, h, 8, 200, 328, hd, 128, f32, True),
@@ -392,7 +440,13 @@ def phase_flash(b: int = 4, h: int = 32, s: int = 1024, hd: int = 80) -> dict:
              (2, 4, 2, 128, 128, 64, 0, f32, True),
              (2, 6, 2, 128, 256, 112, 128, f32, False),
              (1, 8, 2, 128, 384, 128, 256, b16, True),
-             (2, 4, 2, 19, 19, 16, 0, f32, True)]
+             (2, 4, 2, 19, 19, 16, 0, f32, True),
+             (2, 4, 2, 128, 128, 16, 0, b16, True),
+             (2, 4, 2, 128, 128, 64, 0, b16, True),
+             (2, 6, 2, 128, 256, 112, 128, b16, False),
+             (1, h, 8, 200, 328, hd, 0, b16, False),
+             (2, 4, 2, 19, 19, hd, 0, b16, True),
+             (1, 4, 4, 77, 205, hd, 128, b16, True)]
     for b_, h_, kv_, sq, skv, hd_, off, dtype, causal in cases:
         q, k, v = qkv(b_, h_, kv_, sq, skv, hd_, dtype)
         got = fa.flash_attention_fwd(q, k, v, causal=causal, q_offset=off)
@@ -405,18 +459,20 @@ def phase_flash(b: int = 4, h: int = 32, s: int = 1024, hd: int = 80) -> dict:
         errs.append(err)
         log(f"[7] flash b={b_} h={h_} kv={kv_} sq={sq} skv={skv} hd={hd_} q_offset={off} "
             f"{str(dtype)[6:]} causal={causal}: max abs err {err:.3g} (tol {tol[dtype]})")
-    q, k, v = qkv(b, h, h, s, s, hd, torch.bfloat16)
+    # timed on the main path's layout: (b, h, s, hd) views of (b, s, h, hd)
+    q, k, v = (rnd(b, s, h, hd).to(torch.bfloat16).transpose(1, 2) for _ in range(3))
     ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), reps=3)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), reps=3, n=1)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                             scale=hd ** -0.5))
     flops = 4 * b * h * _attn_pairs(s, s, 0, True) * hd  # q k^T and p v
     nbytes = 4 * b * h * s * hd * 2  # q, k, v read, o written, bf16
     bms, by, terms = bound(nbytes, [(flops, BF16_FLOP_PER_S)])
-    log(f"    serving shape: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"scaled_dot_product_attention {lib_ms:.3f} ms, bound {bms:.3f} ms ({terms}; "
+    log(f"    serving shape: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
+        f"({flops / lib_ms / 1e9:.1f} TFLOP/s), bound {bms:.4f} ms ({terms}; "
         f"{flops / 1e9:.2f} GFLOP at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16, "
-        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); kernel at {flops / ms / 1e9:.2f} TFLOP/s")
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
     return {"name": "flash_attention_kernel", "route": "cuda", "source": FLASH_SOURCE,
             "replaces": "src/repro/kernels/flash_attention.py:38", "max_abs_err": max(errs),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
@@ -471,7 +527,8 @@ def phase_ssd(bh: int = 320, s: int = 1024, p: int = 64, n: int = 64,
             f"err y {err_y:.3g} (tol {tol_y:.3g}), states {err_s:.3g} (tol {tol_s:.3g})")
     x, dt, A, B, C = inputs(bh, s, p, n, torch.bfloat16)
     ms = cuda_ms(lambda: ssd.ssd_intra_chunk(x, dt, A, B, C, chunk))
-    plain_ms = cuda_ms(lambda: ssd.ssd_intra_chunk_plain(x, dt, A, B, C, chunk), reps=3)
+    plain_ms = cuda_ms(lambda: ssd.ssd_intra_chunk_plain(x, dt, A, B, C, chunk), reps=3,
+                       n=1)
     nc = s // chunk
     pairs = chunk * (chunk + 1) // 2  # causal (i, j) pairs of a chunk
     ops = [(bh * nc * 2 * pairs * n, BF16_FLOP_PER_S),  # C B^T: bf16 inputs

@@ -113,6 +113,8 @@ def library() -> ctypes.CDLL:
         lib.minplus_patch_launch.restype = i
         lib.flash_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
         lib.flash_attention_launch.restype = i
+        lib.flash_attention_probe_launch.argtypes = [p, p, p, p, p, i, p]
+        lib.flash_attention_probe_launch.restype = i
         lib.ssd_intra_chunk_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.ssd_intra_chunk_launch.restype = i
         lib.repro_cuda_error_string.argtypes = [i]

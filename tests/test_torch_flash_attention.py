@@ -94,6 +94,65 @@ def test_flash_attention_model_shapes_match_jnp_attention(i):
     _close(got, jref.flash_attention_ref(jq, jk, jv, causal=True, q_offset=off), tol)
 
 
+# The bf16 kernel's numerics (csrc/flash_attention.cu, flash_attention_kernel)
+# differ from the reference's fp32 products of pre-scaled inputs: the
+# tensor cores multiply bf16 q and k exactly and sum in fp32, the scale is
+# applied to the fp32 scores (inside the exponent), and P is rounded to
+# bf16 before P V.  A plain emulation of that arithmetic must still meet the
+# reference's bf16 tolerance (3e-2, tests/test_kernels.py) against its
+# oracle.
+KERNEL_BF16_CASES = [
+    # b, sq, skv, h, kv, hd, causal: the reference's two bf16 FA_CASES, then
+    # zamba2-2.7b's head dim (80, h = kv) reduced, and a ragged GQA case
+    (1, 256, 256, 8, 8, 128, True),
+    (1, 128, 384, 8, 2, 128, True),
+    (2, 256, 256, 4, 4, 80, True),
+    (1, 200, 328, 8, 2, 80, True),
+]
+
+
+def _kernel_numerics(q, k, v, causal, q_offset, block_k=128):
+    """The bf16 kernel's arithmetic in PyTorch ops, on (b, h, s, hd) bf16
+    tensors: per tile of 128 keys, fp32 sums of exact bf16 products, masked
+    scores -1e30, fp32 row maxima m of the unscaled scores, l and
+    accumulators, p = 2^(s c - m c) with c = scale log2(e), row sums of the
+    unrounded P, P rounded to bf16 for P V; the output divided by
+    max(l, 1e-30) and rounded to bf16."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    rep = h // kvh
+    c = hd ** -0.5 * 1.4426950408889634
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    m = torch.full((b, h, sq, 1), fa.NEG_INF)
+    l = torch.zeros(b, h, sq, 1)
+    acc = torch.zeros(b, h, sq, hd)
+    qpos = q_offset + torch.arange(sq)[:, None]
+    for k0 in range(0, skv, block_k):
+        s = torch.matmul(q.float(), kf[:, :, k0:k0 + block_k].transpose(-1, -2))
+        if causal:
+            kpos = k0 + torch.arange(s.shape[-1])[None, :]
+            s = s.masked_fill(qpos < kpos, fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * c)
+        p = torch.exp2(s * c - m_new * c)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.bfloat16().float(), vf[:, :, k0:k0 + block_k])
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+@pytest.mark.parametrize("i", range(len(KERNEL_BF16_CASES)))
+def test_bf16_kernel_numerics_meet_reference_tolerance(i):
+    b, sq, skv, h, kv, hd, causal = KERNEL_BF16_CASES[i]
+    (jq, jk, jv), (q, k, v) = _case(200 + i, b, sq, skv, h, kv, hd, jnp.bfloat16)
+    off = skv - sq
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal, q_offset=off)
+    got = _kernel_numerics(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                           causal, off)
+    _close(got.transpose(1, 2), want, 3e-2)
+
+
 def test_flash_attention_wrapper_checks_its_inputs():
     q = torch.zeros(1, 2, 8, 16)
     k = torch.zeros(1, 2, 8, 16)
@@ -105,3 +164,20 @@ def test_flash_attention_wrapper_checks_its_inputs():
         fa.flash_attention_fwd(torch.zeros(1, 3, 8, 16), k, k)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         fa.flash_attention_fwd(q.to("meta"), k.to("meta"), k.to("meta"))
+
+
+def test_bf16_strides_are_checked_for_the_tma():
+    """The bf16 kernel's tensor maps need 16-byte aligned strides; a
+    dimension of size 1 is never stepped, so its stride is replaced."""
+    q = torch.zeros(2, 4, 24, 16, dtype=torch.bfloat16)
+    assert fa._tma_strides("q", q) == [4 * 24 * 16, 24 * 16, 16]
+    assert fa._tma_strides("q", q[:1, :, :1]) == [16, 24 * 16, 16]
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa._tma_strides("q", torch.zeros(1, 2, 8, 20, dtype=torch.bfloat16)[..., :16])
+
+
+def test_layout_probe_runs_on_the_card_only():
+    x = torch.zeros(64, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.wgmma_layout_probe(x, torch.zeros(128, 16, dtype=torch.bfloat16),
+                              torch.zeros(128, 16, dtype=torch.bfloat16))
