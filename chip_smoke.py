@@ -28,15 +28,19 @@ Phases, in order; any failure raises and exits non-zero:
    dtypes, non-causal, on a ragged 19-row tile and with keys ending inside
    a tile, with ``scaled_dot_product_attention`` timed beside it as a
    yardstick;
-8. ``ssd_intra_chunk_kernel`` against its plain version at the serving
-   shape (b*h=320, s=1024, p=n=64, chunk 256, bf16 x/B/C) and at six
-   smaller shapes (p 8..128, n 16..128, chunks 8..256);
+8. the wgmma fragment layouts of ``ssd_intra_chunk_kernel`` (bf16), then
+   the kernel and ``ssd_intra_chunk_fp32_kernel`` against their plain
+   version at the serving shape (b*h=320, s=1024, p=n=64, chunk 256, bf16
+   x/B/C) and at eight smaller shapes (p 8..128, n 16..128, chunks
+   8..512; bf16 down to the domain's edge, chunk 64 and p = n = 16), and a
+   bf16 chunk outside the domain refused;
 9. the serving path: ``ServingEngine`` on zamba2-2.7b at full width and
    full depth (54 Mamba2 layers, 9 applications of the shared attention
    block), bf16, seeded weights, 4 slots, 8 requests of 1024-token prompts
    in 2 waves, 32 greedy tokens each; both model kernels' launches counted
    (9 and 54 per prefill), TTFT, decode latency, throughput, peak memory,
-   and a ``torch.profiler`` readout of one prefill;
+   and a ``torch.profiler`` readout of one prefill, with each hand-written
+   kernel's device time and launches;
 10. zamba2-2.7b at full width, depth 6 (one stage), float32, on the card
     and on the CPU: prefill and decode logits within a stated tolerance and
     the same greedy tokens.
@@ -53,6 +57,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -70,6 +75,8 @@ FP32_FLOP_PER_S = 67e12
 SWEEP_SOURCE = "src/repro_torch/kernels/csrc/bfs_sweep.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+KERNELS = ("bfs_sweep_kernel", "minplus_patch_kernel", "flash_attention_kernel",
+           "ssd_intra_chunk_kernel")
 DEV = "cuda"
 
 
@@ -144,9 +151,52 @@ def phase_build() -> None:
     path, out = _build.build()
     _build.library()
     log(f"[2] built {os.path.relpath(path, HERE)} in {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_summary(out):
+        log(f"    {line}")
+
+
+def _kernel_name(mangled: str) -> str:
+    """The ``*_kernel`` name in a mangled symbol: the one that a length
+    prefix spells out (the namespace before it carries digits too)."""
+    for m in re.finditer(r"_kernel", mangled):
+        for i in range(m.start(), 0, -1):
+            digits = re.search(r"\d+$", mangled[:i])
+            if digits and any(int(digits.group()[k:]) == m.end() - i
+                              for k in range(len(digits.group()))):
+                return mangled[i:m.end()]
+    return mangled
+
+
+def ptxas_summary(out: str) -> list[str]:
+    """``nvcc -Xptxas -v``'s report in a few lines: per kernel, its
+    instantiations' registers and spill stores, then every error and every
+    C75xx note (ptxas reports a serialized ``wgmma`` pipeline as "info
+    (C7513)", not as a warning)."""
+    kernels: dict[str, list[tuple[str, int, int]]] = {}
+    func, spill = "", 0
+    notes = []
     for line in out.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log(f"    {line.strip()}")
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            func = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and func:
+            args = ",".join(re.findall(r"Li(\d+)E", func))
+            kernels.setdefault(_kernel_name(func), []).append((args, int(m.group(1)), spill))
+            func, spill = "", 0
+        if "C75" in line or "error" in line.lower():
+            notes.append(line.strip())
+    lines = []
+    for name, inst in sorted(kernels.items()):
+        regs = [r for _, r, _ in inst]
+        spilled = [f"<{a}> {sp} B" for a, _, sp in inst if sp]
+        lines.append(f"{name}: {len(inst)} instantiation(s), {min(regs)}-{max(regs)} registers, "
+                     f"spill stores: {', '.join(spilled) or 'none'}")
+    lines.append(f"ptxas errors and C75xx notes: {len(notes)}")
+    return lines + notes
 
 
 def phase_sweep(n: int = 8192, s: int = 2048) -> dict:
@@ -361,6 +411,11 @@ def profile_run(fn, label: str, top: int = 6) -> None:
         f"{wall:.2f} s wall ({100 * busy / wall:.1f}%); top device time:")
     for us, count, key in rows[:top]:
         log(f"      {us / 1e3:10.2f} ms  x{count:<5d} {key[:72]}")
+    # each hand-written kernel by name, in the top rows or not
+    for name in KERNELS:
+        hit = [(us, count) for us, count, key in rows if re.search(rf"\b{name}\b", key)]
+        log(f"      {sum(h[0] for h in hit) / 1e3:10.2f} ms  x{sum(h[1] for h in hit):<5d} "
+            f"{name} (all instantiations)")
 
 
 def phase_card_vs_cpu() -> None:
@@ -481,13 +536,42 @@ def phase_flash(b: int = 4, h: int = 32, s: int = 1024, hd: int = 80) -> dict:
 
 def phase_ssd(bh: int = 320, s: int = 1024, p: int = 64, n: int = 64,
               chunk: int = 256) -> dict:
-    """ssd_intra_chunk_kernel against its plain version on the card."""
+    """ssd_intra_chunk_kernel (bf16) and ssd_intra_chunk_fp32_kernel against
+    their plain version on the card, after a check of the wgmma fragment
+    layouts the bf16 kernel rests on."""
     import torch
 
     from repro_torch.kernels import ssd_scan as ssd
 
     gen = torch.Generator(device=DEV).manual_seed(2)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
+
+    # the fragment layouts: S = C B^T, (hi + lo)(W) X and (hi + lo)(X w)^T B
+    # from the kernel's own loads, descriptors and products, each register
+    # written where the kernel takes it to lie; the products are exact, so
+    # only the order of the fp32 sums differs (1e-5 of the largest value; a
+    # misplaced register is off by the values themselves)
+    def split(v):
+        hi = v.bfloat16().float()
+        return hi, (v - hi).bfloat16().float()
+
+    for n_, p_ in ((64, 64), (64, 128), (16, 16), (128, 48)):
+        C, B = (rnd(64, n_).to(torch.bfloat16) for _ in range(2))
+        X = rnd(64, p_).to(torch.bfloat16)
+        W, w = rnd(64, 64), torch.rand(64, generator=gen, device=DEV)
+        got = ssd.ssd_wgmma_layout_probe(C, B, X, W, w)
+        w_hi, w_lo = split(W)
+        xw_hi, xw_lo = split(X.float() * w[:, None])
+        want = (C.float() @ B.float().T, w_hi @ X.float() + w_lo @ X.float(),
+                xw_hi.T @ B.float() + xw_lo.T @ B.float())
+        torch.cuda.synchronize()
+        errs = [float((g - r).abs().max()) for g, r in zip(got, want)]
+        tols = [1e-5 * float(r.abs().max()) for r in want]
+        check(all(e <= t for e, t in zip(errs, tols)),
+              f"ssd wgmma fragment layout wrong at n={n_} p={p_}: S, W X, state errors "
+              f"{errs} (tols {tols})")
+        log(f"[8] ssd wgmma fragment layout n={n_} p={p_}: S err {errs[0]:.3g}, W X err "
+            f"{errs[1]:.3g}, state err {errs[2]:.3g} (tols {', '.join(f'{t:.3g}' for t in tols)})")
 
     def inputs(bh_, s_, p_, n_, dtype):
         x = rnd(bh_, s_, p_).to(dtype)
@@ -499,11 +583,14 @@ def phase_ssd(bh: int = 320, s: int = 1024, p: int = 64, n: int = 64,
 
     # the serving shape; then the reference's kernel cases (p 8..64, n up to
     # 128, chunks of 16..256, so ragged 64-row tiles), the reduced config
-    # (p 8, n 16, chunk 8) and p = 128 (the largest column template)
+    # (p 8, n 16, chunk 8), p = 128 (the largest column template), the bf16
+    # kernel's smallest chunk, p and n, and a chunk of 512 (one stage of
+    # shared memory, two TMA boxes per slab)
     cases = [(bh, s, p, n, chunk, torch.bfloat16), (8, 64, 8, 16, 16, torch.float32),
              (2, 96, 64, 128, 32, torch.float32), (8, 128, 8, 16, 32, torch.float32),
              (2, 256, 16, 32, 256, torch.float32), (8, 16, 8, 16, 8, torch.float32),
-             (2, 256, 128, 64, 128, torch.bfloat16)]
+             (2, 256, 128, 64, 128, torch.bfloat16), (4, 192, 16, 16, 64, torch.bfloat16),
+             (2, 1024, 64, 64, 512, torch.bfloat16)]
     errs = []
     for bh_, s_, p_, n_, chunk_, dtype in cases:
         args = inputs(bh_, s_, p_, n_, dtype)
@@ -513,7 +600,8 @@ def phase_ssd(bh: int = 320, s: int = 1024, p: int = 64, n: int = 64,
         # fp32, relative to the largest magnitude of each output: the chunk's
         # cumsum of log-decays reaches |cs| ~ 10^2 and is summed in another
         # order by the kernel's warp scan than by torch.cumsum, so exp(cs_i -
-        # cs_j) differs by ~1e-5 relative; the products add less
+        # cs_j) differs by ~1e-5 relative; the products add less (bf16: the
+        # weighted operand split into two bf16 terms keeps ~16 bits)
         err_y = float((y - y_p).abs().max())
         err_s = float((st - st_p).abs().max())
         tol_y = 1e-4 * float(y_p.abs().max())
@@ -525,21 +613,34 @@ def phase_ssd(bh: int = 320, s: int = 1024, p: int = 64, n: int = 64,
         errs.append(max(err_y, err_s))
         log(f"[8] ssd bh={bh_} s={s_} p={p_} n={n_} chunk={chunk_} {str(dtype)[6:]}: max abs "
             f"err y {err_y:.3g} (tol {tol_y:.3g}), states {err_s:.3g} (tol {tol_s:.3g})")
+    # a bf16 shape outside the kernel's domain raises (no other kernel takes it)
+    try:
+        ssd.ssd_intra_chunk(*inputs(2, 64, 64, 64, torch.bfloat16), 32)
+    except ValueError as e:
+        log(f"    bf16 chunk 32 refused: {e}")
+    else:
+        raise RuntimeError("check failed: a bf16 chunk of 32 was not refused")
     x, dt, A, B, C = inputs(bh, s, p, n, torch.bfloat16)
     ms = cuda_ms(lambda: ssd.ssd_intra_chunk(x, dt, A, B, C, chunk))
     plain_ms = cuda_ms(lambda: ssd.ssd_intra_chunk_plain(x, dt, A, B, C, chunk), reps=3,
                        n=1)
     nc = s // chunk
     pairs = chunk * (chunk + 1) // 2  # causal (i, j) pairs of a chunk
-    ops = [(bh * nc * 2 * pairs * n, BF16_FLOP_PER_S),  # C B^T: bf16 inputs
-           # the weighted products: (scores * L * dt) X and X^T (B * w), fp32
-           (bh * nc * (2 * pairs * p + 2 * chunk * p * n), FP32_FLOP_PER_S)]
+    cb = bh * nc * 2 * pairs * n  # C B^T
+    weighted = bh * nc * (2 * pairs * p + 2 * chunk * p * n)  # (scores * L * dt) X, X^T (B w)
+    # every product on the tensor cores: C B^T exact in bf16, the weighted
+    # products twice (the weighted operand split into two bf16 terms)
+    ops = [(cb + 2 * weighted, BF16_FLOP_PER_S)]
     nbytes = (bh * s * (p + 2 * n) * 2 + bh * s * 4 + bh * 4  # x, B, C, dt, A
               + bh * s * p * 4 + bh * nc * p * n * 4)  # y, states
     bms, by, terms = bound(nbytes, ops)
-    log(f"    serving shape: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.3f} ms "
-        f"({terms}; C B^T at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16, the rest at "
-        f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s fp32)")
+    fp32_terms = bound(nbytes, [(cb, BF16_FLOP_PER_S), (weighted, FP32_FLOP_PER_S)])[2]
+    log(f"    serving shape: kernel {ms:.4f} ms ({(cb + weighted) / ms / 1e9:.1f} TFLOP/s of "
+        f"the reference's {(cb + weighted) / 1e9:.2f} GFLOP), plain {plain_ms:.3f} ms, bound "
+        f"{bms:.4f} ms ({terms}; {(cb + 2 * weighted) / 1e9:.2f} GFLOP at "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16, {nbytes / 1e6:.1f} MB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; with the weighted products at "
+        f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s fp32, as the first design ran them: {fp32_terms})")
     return {"name": "ssd_intra_chunk_kernel", "route": "cuda", "source": SSD_SOURCE,
             "replaces": "src/repro/kernels/ssd_scan.py:32", "max_abs_err": max(errs),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,

@@ -5,8 +5,9 @@ their wrappers pass and get back.
 sources at once in parallel processes, and links the objects into one
 shared library with a plain C interface, under ``kernels/_build/``
 (git-ignored), the first time a kernel is launched.  Each object's name
-carries a hash of its source and the flags, and the library's a hash of the
-objects, so an edited source builds anew and an unchanged one is reused.
+carries a hash of its source, the shared headers (``csrc/*.cuh``) and the
+flags, and the library's a hash of the objects, so an edited source or
+header builds anew and an unchanged one is reused.
 The library is loaded with ``ctypes``; every pointer and the stream are
 passed as ``c_void_p``.  A failed build raises with nvcc's output.
 """
@@ -82,12 +83,13 @@ def build() -> tuple[Path, str]:
     and nvcc's output (with ptxas's register, spill and shared-memory
     report; empty when everything was reused)."""
     flags = " ".join(NVCC_FLAGS).encode()
+    headers = [h.read_bytes() for h in sorted(_CSRC.glob("*.cuh"))]
     objs = []
     procs: list = []
     _BUILD.mkdir(exist_ok=True)
     for name in SOURCES:
         src = _CSRC / name
-        obj = _BUILD / f"{src.stem}_{_digest(flags, src.read_bytes())}.o"
+        obj = _BUILD / f"{src.stem}_{_digest(flags, *headers, src.read_bytes())}.o"
         objs.append(obj)
         if not obj.is_file():
             _start([_nvcc(), *NVCC_FLAGS, "-c", str(src)], obj, procs)
@@ -117,6 +119,8 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_probe_launch.restype = i
         lib.ssd_intra_chunk_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.ssd_intra_chunk_launch.restype = i
+        lib.ssd_probe_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, p]
+        lib.ssd_probe_launch.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
