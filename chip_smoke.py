@@ -7,17 +7,23 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. the device: ``nvidia-smi`` name and power limit, PyTorch's device name;
 2. build the CUDA kernels with nvcc (timed);
-3. ``bfs_sweep_kernel`` against its plain PyTorch version, bit for bit: the
-   pinned (8192, 8) circulant and three more (8192, <=8) graphs, one of them
-   disconnected, from its 2048 representative sources; then the shape of a
-   polish dispatch, a delta batch of 32 connected graphs with few affected
-   rows each, whose times and bound are the kernel's row;
+3. ``bfs_sweep_kernel`` against its plain PyTorch version, bit for bit, at
+   the shapes the polish launches, from (8192, 8) graphs it prices (the
+   pinned circulant and orbit swaps of it): the full re-sweep (b=32, all
+   2048 representative rows, sw_pad=64), the kernel's row, and a delta
+   batch (b=32, 0-47 affected rows each); then the first two rows this
+   script timed (four (8192, <=8) graphs from 2048 sources, one
+   disconnected; a delta batch of degree-8, 6 and 4 circulants), all timed
+   with their bounds; then small batches that reach every branch of the
+   kernel (checked, not timed), each with the instantiation ``sweep_plan``
+   gave it;
 4. ``minplus_patch_kernel`` against its plain version at the main path's
    shape (b=32, s=2048, n=8192, mmax=8);
 5. the main path, ``large_search(8192, 8, replicas=8, proposal_batch=4,
-   polish_iters=64)`` on the card, with both kernels' launches counted and
-   the result rechecked; then a short delta=False run, which must follow the
-   same trajectory as delta=True over the same iterations;
+   polish_iters=64)`` on the card, with both kernels' launches counted (the
+   sweep's also by (b, sw_pad)) and the result rechecked; then a short
+   delta=False run, which must follow the same trajectory as delta=True
+   over the same iterations;
 6. the same search at (2048, 6) on the card and on the CPU (the kernels'
    plain versions): every field must be equal;
 7. the wgmma fragment layouts of ``flash_attention_kernel`` (bf16), then
@@ -125,10 +131,18 @@ def bound(nbytes: float, ops: list[tuple[float, float]]) -> tuple[float, str, st
 
 
 def circ_nbr(n: int, offsets, kmax: int) -> np.ndarray:
-    from repro_torch.core import metrics
-    from repro_torch.core.graphs import circulant
-
-    return metrics._nbr_table(circulant(n, offsets).adjacency(), kmax)
+    """``metrics._nbr_table`` of the circulant C_n(offsets), padded to
+    ``kmax``, built without the (n, n) adjacency: each row's neighbours
+    sorted, then -1."""
+    v = np.arange(n)[:, None]
+    cand = np.sort(np.concatenate([(v + o) % n for o in offsets]
+                                  + [(v - o) % n for o in offsets], axis=1), axis=1)
+    cand[:, 1:][cand[:, 1:] == cand[:, :-1]] = n  # drop repeats (o = n / 2)
+    cand.sort(axis=1)
+    out = np.full((n, kmax), -1, dtype=np.int32)
+    deg = int((cand[0] < n).sum())
+    out[:, :deg] = cand[:, :deg]
+    return out
 
 
 def phase_device() -> str:
@@ -199,7 +213,84 @@ def ptxas_summary(out: str) -> list[str]:
     return lines + notes
 
 
-def phase_sweep(n: int = 8192, s: int = 2048) -> dict:
+def polish_tables(n: int, k: int, count: int, seed: int = 0,
+                  fold: int = 4) -> tuple[np.ndarray, np.ndarray]:
+    """(count, n, k) neighbour tables of graphs the polish prices at (n, k):
+    the pinned circulant, then count - 1 orbit swaps of it drawn from a
+    seeded Generator as a polish iteration draws them (``_draw_orbit_swap``),
+    each as the swapped graph (what a full re-sweep prices) and as the
+    post-removal graph (what the delta sweep prices)."""
+    from repro_torch.core.graphs import circulant
+    from repro_torch.core.known_optimal import KNOWN_CIRCULANT_OFFSETS
+    from repro_torch.core.search import (_circulant_orbits, _draw_orbit_swap,
+                                         _PolishChain)
+
+    s = n // fold
+    offsets = KNOWN_CIRCULANT_OFFSETS[(n, k)]
+    ring = {(i, (i + 1) % n) for i in range(n - 1)} | {(0, n - 1)}
+    rng = np.random.default_rng(seed)
+    ch = _PolishChain(rng, sorted(_circulant_orbits(n, s, offsets), key=sorted),
+                      circulant(n, offsets).adjacency(), 0.05)
+    full, post = [ch.nbr], [ch.nbr]
+    while len(full) < count:
+        mv = _draw_orbit_swap(rng, ch.orb_list, ch.chord_edges, ring, n, s, fold)
+        if mv is None:
+            continue
+        work = mv[5] | mv[4]  # remaining chords | new edges
+        removed = sorted(ch.chord_edges - work)
+        full.append(ch.trial_nbr(removed, sorted(work - ch.chord_edges)))
+        post.append(ch.trial_nbr(removed, ()))
+    return np.stack(full), np.stack(post)
+
+
+def sweep_edge_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int]]:
+    """Small batches that reach every branch of ``bfs_sweep_kernel``, as
+    (label, nb, vm, F0, sentinel) numpy arrays."""
+    from repro_torch.core.known_optimal import KNOWN_CIRCULANT_OFFSETS
+    from repro_torch.kernels import bfs_sweep as bs
+
+    rng = np.random.default_rng(3)
+    cases = []
+
+    def add(label, nbrs, sources, sentinel=None):
+        nb, vm, F0, _, _ = bs.pack_batch(nbrs, np.asarray(sources))
+        cases.append((label, nb, vm, F0, nbrs.shape[1] if sentinel is None else sentinel))
+
+    # kmax 5 with -1 pads in the middle of a row (degree 4 and some degree 3)
+    nbr = circ_nbr(130, (1, 9), 5)
+    nbr[::7, 1] = -1
+    nbr = np.take_along_axis(nbr, rng.permuted(np.tile(np.arange(5), (130, 1)), axis=1), 1)
+    add("kmax 5, -1 pads mid-row, n=130", nbr[None], np.arange(130))
+    add("n=1000 (ragged block)", circ_nbr(1000, (1, 23, 100), 6)[None], np.arange(0, 1000, 7))
+    add("n=3000 (ragged last vertex slot)", circ_nbr(3000, (1, 50, 301), 6)[None],
+        rng.choice(3000, 200, replace=False))
+    # a zero seed word between two others, and a source in bit 31
+    nb, vm, _, _, _ = bs.pack_batch(circ_nbr(200, (1, 13), 4)[None], np.arange(1))
+    F0 = np.zeros((1, 200, 3), dtype=np.uint32)
+    F0[0, 17, 0] = np.uint32(1 << 31)
+    F0[0, 5, 0] = 1
+    F0[0, 199, 2] = 1 | np.uint32(1 << 31)
+    cases.append(("zero seed word, sources in bit 31", nb, vm, F0, 200))
+    add("disconnected (even offsets), n=600", circ_nbr(600, (2, 10), 4)[None],
+        np.arange(0, 600, 5))
+    # vm words other than 0 and 0xFFFFFFFF (no packer makes them)
+    nb, vm, F0, _, _ = bs.pack_batch(circ_nbr(512, (1, 5, 77), 6)[None], np.arange(96))
+    part = rng.random(vm.shape) < 0.5
+    vm[part] = rng.integers(0, 2**32, size=int(part.sum()), dtype=np.uint32)
+    cases.append(("vm words other than 0 and ~0, n=512", nb, vm, F0, 512))
+    # more (graph, word) items than blocks: blocks take several, across graphs
+    nbrs = np.stack([circ_nbr(130, (1, 2 + g % 40), 4) for g in range(40)])
+    add("40 graphs x 8 words, n=130", nbrs, np.arange(130))
+    add("ring, n=2000 (1000 levels)", circ_nbr(2000, (1,), 2)[None], np.arange(0, 2000, 40))
+    add("kmax 12, n=2048", circ_nbr(2048, (1, 3, 17, 99, 301, 700), 12)[None], np.arange(64))
+    add("n=16384, k=8", circ_nbr(16384, KNOWN_CIRCULANT_OFFSETS[(16384, 8)], 8)[None],
+        np.arange(64))
+    add("n=MAX_SWEEP_N", circ_nbr(bs.MAX_SWEEP_N, (1, 99, 1000, 7000), 8)[None],
+        rng.choice(bs.MAX_SWEEP_N, 64, replace=False))
+    return cases
+
+
+def phase_sweep(n: int = 8192, k: int = 8, s: int = 2048, b: int = 32) -> dict:
     import torch
 
     from repro_torch.core.known_optimal import KNOWN_CIRCULANT_OFFSETS
@@ -207,62 +298,90 @@ def phase_sweep(n: int = 8192, s: int = 2048) -> dict:
     from repro_torch.kernels import bfs_sweep as bs
 
     dev = torch.device(DEV)
-    kmax = 8
-    offsets = [KNOWN_CIRCULANT_OFFSETS[(n, 8)], KNOWN_CIRCULANT_OFFSETS[(n, 6)],
-               KNOWN_CIRCULANT_OFFSETS[(n, 4)], (2, 4, 6, 8)]  # last: 2 components
-    nbrs = np.stack([circ_nbr(n, o, kmax) for o in offsets])
-    nb, vm, F0, sw_pad, _ = bs.pack_batch(nbrs, np.arange(s))
-    nb, vm, F0 = (bs.as_words(a, dev) for a in (nb, vm, F0))
-    got = bs.sweep(nb, vm, F0, n)
-    want = bs.sweep_rows_ref(nb, vm, F0, n)
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "bfs_sweep_kernel != sweep_rows_ref (full batch)")
-    err = int((got - want).abs().max())
+    errs = []
+
+    def row(label, arrays, sentinel, plain=True, calls=10):
+        """Hold the kernel against its plain version bit for bit; time the
+        kernel over ``calls`` calls (none: a check only) and the plain
+        version; the bound from this batch's bytes and the levels its graphs
+        need."""
+        nb, vm, F0 = (bs.as_words(a, dev) for a in arrays)
+        got = bs.sweep(nb, vm, F0, sentinel)
+        want = bs.sweep_rows_ref(nb, vm, F0, sentinel)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"bfs_sweep_kernel != sweep_rows_ref ({label})")
+        errs.append(int((got - want).abs().max()))
+        ms = cuda_ms(lambda: bs.sweep(nb, vm, F0, sentinel), n=calls) if calls else None
+        plain_ms = (cuda_ms(lambda: bs.sweep_rows_ref(nb, vm, F0, sentinel), reps=3, n=1)
+                    if plain else None)
+        bb, nn, kk = nb.shape
+        sw = F0.shape[2]
+        # levels each graph's sources need (0 for a graph with none)
+        levels = [int(got[g][got[g] < sentinel].max()) + 1
+                  if bool((got[g] < sentinel).any()) else 0 for g in range(bb)]
+        nbytes = (nb.numel() + vm.numel() + F0.numel() + got.numel()) * 4
+        nops = sum(lv * nn * kk * sw * 2 for lv in levels)  # AND + OR per gather
+        bms, by, terms = bound(nbytes, [(nops, INT32_OPS_PER_S)])
+        plan = bs.sweep_plan(nn, kk)
+        timing = "" if ms is None else (
+            f"; kernel {ms:.4f} ms, plain "
+            f"{'not timed' if plain_ms is None else f'{plain_ms:.3f} ms'}, bound {bms:.4f} ms "
+            f"({terms})")
+        log(f"    {label}: b={bb} n={nn} kmax={kk} sw_pad={sw}, {plan.graph} graph, "
+            f"{plan.threads} threads x {plan.vpt}: bit-exact{timing}; levels "
+            f"{sorted(set(levels))}")
+        return got, {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+
+    log("[3] bfs_sweep_kernel against sweep_rows_ref, bit for bit")
+    # the shapes the polish launches: the full re-sweep of 32 (8192, 8)
+    # graphs from all 2048 representative rows (delta=False every
+    # iteration; delta=True when one proposal of a dispatch needs a full
+    # rebuild), and the delta sweep of 32 post-removal graphs, 0-47
+    # affected rows each; this full-shape row is the kernel's row
+    full, post = polish_tables(n, k, b)
+    nb, vm, F0, sw_pad, _ = bs.pack_batch(full, np.arange(s))
+    got, main_row = row(f"polish full shape ({k}-regular swaps of the pinned circulant)",
+                        (nb, vm, F0), n)
+    mpl_c, _ = _circulant_profile(n, KNOWN_CIRCULANT_OFFSETS[(n, k)])
     # independent of both: every row of a circulant sums to (n - 1) * MPL
-    mpl_c, _ = _circulant_profile(n, offsets[0])
     check(int(got[0, :s].sum(dtype=torch.int64)) == s * round(mpl_c * (n - 1)),
           "pinned circulant rows disagree with the host profile")
+    del got
+    rng = np.random.default_rng(0)
+    srcs = [np.sort(rng.choice(s, size=int(rng.integers(0, 48)), replace=False))
+            for _ in range(b)]
+    srcs[5] = np.empty(0, dtype=np.int64)
+    nb, vm, F0, _, _, _ = bs.pack_delta_batch(post, srcs, s)
+    row("polish delta shape (post-removal tables)", (nb, vm, F0), n)
+
+    # the rows this script timed first, kept for continuity: the pinned (8192, 8)
+    # circulant and three more graphs from 2048 sources (the fourth graph is
+    # disconnected: a bit-exactness check, not a shape the polish prices),
+    # and a delta batch of degree-8, 6 and 4 circulants
+    offsets = [KNOWN_CIRCULANT_OFFSETS[(n, 8)], KNOWN_CIRCULANT_OFFSETS[(n, 6)],
+               KNOWN_CIRCULANT_OFFSETS[(n, 4)], (2, 4, 6, 8)]
+    nbrs = np.stack([circ_nbr(n, o, k) for o in offsets])
+    nb, vm, F0, _, _ = bs.pack_batch(nbrs, np.arange(s))
+    got, _ = row("full batch (four graphs, one disconnected)", (nb, vm, F0), n, plain=False,
+                 calls=1)
     check(bool((got[3, :s] == n).any()) and not bool((got[0, :s] == n).any()),
           "sentinel rows wrong")
-    ms_full = cuda_ms(lambda: bs.sweep(nb, vm, F0, n), n=1)
-    b = nbrs.shape[0]
-    levels = [int(got[g][got[g] < n].max()) + 1 for g in range(b)]
-    nbytes = (nb.numel() + vm.numel() + F0.numel() + got.numel()) * 4
-    nops = sum(lv * n * kmax * sw_pad * 2 for lv in levels)  # AND + OR per gather
-    bms_full, _, terms = bound(nbytes, [(nops, INT32_OPS_PER_S)])
-    log(f"[3] sweep b={b} n={n} sw_pad={sw_pad}: bit-exact; kernel {ms_full:.3f} ms, bound "
-        f"{bms_full:.3f} ms ({terms}); levels {levels} (the fourth graph is disconnected: "
-        f"a bit-exactness check, not a shape the polish prices)")
-
-    # the shape of a polish dispatch: 32 post-removal tables, a few affected
-    # rows each, some none (here of connected circulants of degree 8, 6 and
-    # 4, where the polish prices degree-8 graphs); this batch is the row
+    del got
     rng = np.random.default_rng(0)
-    nbrs32 = nbrs[np.arange(32) % 3]
     srcs = [np.sort(rng.choice(s, size=int(rng.integers(0, 48)), replace=False))
             for _ in range(32)]
     srcs[5] = np.empty(0, dtype=np.int64)
-    nb2, vm2, F02, ids, sw2, _ = bs.pack_delta_batch(nbrs32, srcs, s)
-    nb2, vm2, F02 = (bs.as_words(a, dev) for a in (nb2, vm2, F02))
-    got2 = bs.sweep(nb2, vm2, F02, n)
-    want2 = bs.sweep_rows_ref(nb2, vm2, F02, n)
-    torch.cuda.synchronize()
-    check(torch.equal(got2, want2), "bfs_sweep_kernel != sweep_rows_ref (delta batch)")
-    err = max(err, int((got2 - want2).abs().max()))
-    ms = cuda_ms(lambda: bs.sweep(nb2, vm2, F02, n))
-    plain_ms = cuda_ms(lambda: bs.sweep_rows_ref(nb2, vm2, F02, n), reps=3, n=1)
-    # levels each graph's sources need (0 for a graph with none)
-    levels2 = [int(got2[g][got2[g] < n].max()) + 1 if bool((got2[g] < n).any()) else 0
-               for g in range(got2.shape[0])]
-    nbytes2 = (nb2.numel() + vm2.numel() + F02.numel() + got2.numel()) * 4
-    nops2 = sum(lv * n * kmax * sw2 * 2 for lv in levels2)
-    bms, by, terms2 = bound(nbytes2, [(nops2, INT32_OPS_PER_S)])
-    log(f"    delta batch b=32 sw_pad={sw2}: bit-exact; kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bms:.3f} ms ({terms2}); levels {sorted(set(levels2))}")
+    nb, vm, F0, _, _, _ = bs.pack_delta_batch(nbrs[np.arange(32) % 3], srcs, s)
+    row("delta batch (degree-8, 6 and 4 circulants)", (nb, vm, F0), n)
+
+    # every branch of the kernel, checked only (small shapes time the host's
+    # launch, not the card)
+    log("    edge cases:")
+    for label, nb, vm, F0, sentinel in sweep_edge_cases():
+        row(label, (nb, vm, F0), sentinel, plain=False, calls=0)
     return {"name": "bfs_sweep_kernel", "route": "cuda", "source": SWEEP_SOURCE,
-            "replaces": "src/repro/kernels/bfs_sweep.py:133", "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None}
+            "replaces": "src/repro/kernels/bfs_sweep.py:133", "max_abs_err": max(errs),
+            **main_row, "library_ms": None}
 
 
 def phase_patch(b: int = 32, s: int = 2048, n: int = 8192, mmax: int = 8) -> dict:
@@ -327,6 +446,7 @@ def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
     cuda_sweep.sharded_delta_state = timed
     try:
         bs.sweep.launches = bs.patch_apply.launches = 0
+        bs.sweep.shapes.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -336,6 +456,7 @@ def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
         wall = time.perf_counter() - t0
         launches = {"bfs_sweep_kernel": bs.sweep.launches,
                     "minplus_patch_kernel": bs.patch_apply.launches}
+        shapes = dict(sorted(bs.sweep.shapes.items()))
     finally:
         cuda_sweep.sharded_delta_state = orig
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -347,6 +468,7 @@ def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
         f"accepted={res.accepted} evals_delta={res.evals_delta} "
         f"evals_full={res.evals_full} device_dispatches={res.device_dispatches} "
         f"launches={launches}")
+    log(f"    bfs_sweep_kernel launches by (b, sw_pad): {shapes}")
     check(launches["bfs_sweep_kernel"] > 0 and launches["minplus_patch_kernel"] > 0,
           f"main path did not launch both kernels: {launches}")
 

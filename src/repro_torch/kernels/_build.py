@@ -109,7 +109,7 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()[0]))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.bfs_sweep_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.bfs_sweep_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.bfs_sweep_launch.restype = i
         lib.minplus_patch_launch.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.minplus_patch_launch.restype = i

@@ -26,6 +26,9 @@ int32 shifts sign-extend bit 31.
 """
 from __future__ import annotations
 
+from collections import Counter
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -39,9 +42,11 @@ BLOCK_WORDS = 4  # source words per reference grid cell (sets the padding)
 # plus one distance (2^21 + n), so int32 arithmetic never overflows while
 # masked terms can never undercut a real path
 PATCH_INF = np.int32(1 << 20)
-# bfs_sweep_kernel keeps F and V (2 * n * 4 bytes) in one block's shared
-# memory, at most 232448 bytes on Hopper
-MAX_SWEEP_N = 232448 // 8
+# shared memory one block can use on Hopper
+SMEM_BYTES = 232448
+# bfs_sweep_kernel keeps two frontier buffers (2 * n * 4 bytes) in one
+# block's shared memory
+MAX_SWEEP_N = SMEM_BYTES // 8
 
 __all__ = [
     "WORD",
@@ -49,6 +54,8 @@ __all__ = [
     "BLOCK_WORDS",
     "PATCH_INF",
     "MAX_SWEEP_N",
+    "SMEM_BYTES",
+    "SweepPlan",
     "bfs_rows",
     "bfs_rows_batched",
     "pack_batch",
@@ -60,6 +67,7 @@ __all__ = [
     "patch_apply_ref",
     "patch_prologue",
     "sweep",
+    "sweep_plan",
     "sweep_rows_ref",
 ]
 
@@ -290,6 +298,42 @@ def patch_apply_ref(dist, tmp, crows):
 # ------------------------------------------------------------------------------
 
 _WORD_DTYPES = (torch.int32, torch.uint32)
+_SWEEP_THREADS = 1024
+# the shared-memory table holds one 16-byte row of eight 16-bit byte offsets
+# per vertex, and a thread keeps four level bit-planes of each of its
+# vertices in registers, which fits 8 vertices a thread
+_TABLE_KMAX = 8
+_TABLE_VPT = 8
+
+
+class SweepPlan(NamedTuple):
+    """How ``bfs_sweep_kernel`` runs one shape.  ``graph`` is "shared" (the
+    neighbour table read once per graph into shared memory as 16-bit
+    offsets) or "global" (each vertex's rows read from device memory at
+    every level); ``threads`` per block, ``vpt`` vertices per thread (a
+    power of two), ``smem_bytes`` of dynamic shared memory per block."""
+
+    graph: str
+    threads: int
+    vpt: int
+    smem_bytes: int
+
+
+def sweep_plan(n: int, kmax: int) -> SweepPlan:
+    """The instantiation of ``bfs_sweep_kernel`` that a graph of ``n``
+    vertices and ``kmax`` table columns runs: the shared-memory table where
+    it fits (kmax <= 8 and n <= 8192), else rows from device memory.  Both
+    keep two frontier buffers in shared memory, so n <= ``MAX_SWEEP_N``."""
+    if not 1 <= n <= MAX_SWEEP_N:
+        raise ValueError(
+            f"bfs_sweep_kernel holds two frontier buffers in shared memory: n={n} "
+            f"is outside 1..{MAX_SWEEP_N} (2 * n * 4 bytes must fit {SMEM_BYTES})")
+    threads = min(_SWEEP_THREADS, -(-n // WORD) * WORD)
+    vpt = _pow2(-(-n // threads))
+    if kmax <= _TABLE_KMAX and vpt <= _TABLE_VPT:
+        words = -(-(n + 1) // 4) * 4  # n frontier words and a zero word, 16-byte rows
+        return SweepPlan("shared", threads, vpt, 2 * words * 4 + n * _TABLE_KMAX * 2)
+    return SweepPlan("global", threads, vpt, 2 * n * 4)
 
 
 def sweep(nb: torch.Tensor, vm: torch.Tensor, F0: torch.Tensor,
@@ -297,8 +341,10 @@ def sweep(nb: torch.Tensor, vm: torch.Tensor, F0: torch.Tensor,
     """Batched packed BFS sweep: (b, n, kmax) gather table, (b, n, kmax)
     validity words and (b, n, sw_pad) seed frontier (words as int32, or
     uint32) -> (b, sw_pad*32, n) int32 distances, ``sentinel`` where
-    unreachable.  Launches ``bfs_sweep_kernel`` on a CUDA tensor (one block
-    per (source word, graph)); runs ``sweep_rows_ref`` on a CPU tensor."""
+    unreachable.  Launches ``bfs_sweep_kernel`` on a CUDA tensor (the
+    instantiation ``sweep_plan`` picks; each launch also counts its
+    (b, sw_pad) in ``sweep.shapes``); runs ``sweep_rows_ref`` on a CPU
+    tensor."""
     if nb.dim() != 3 or F0.dim() != 3:
         raise ValueError(f"sweep takes (b, n, kmax) and (b, n, sw_pad) tensors, "
                          f"got {tuple(nb.shape)} and {tuple(F0.shape)}")
@@ -313,21 +359,22 @@ def sweep(nb: torch.Tensor, vm: torch.Tensor, F0: torch.Tensor,
         return sweep_rows_ref(nb, vm, F0, sentinel)
     if dev.type != "cuda":
         raise ValueError(f"sweep runs on a CUDA or CPU tensor, got {dev}")
-    if n > MAX_SWEEP_N:
-        raise ValueError(
-            f"bfs_sweep_kernel holds F and V in shared memory: n={n} exceeds "
-            f"{MAX_SWEEP_N} (2 * n * 4 bytes must fit 232448)")
     out = torch.empty((b, sw_pad * WORD, n), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    plan = sweep_plan(n, kmax)
     err = _build.library().bfs_sweep_launch(
         nb.data_ptr(), vm.data_ptr(), F0.data_ptr(), out.data_ptr(),
-        b, n, kmax, sw_pad, int(sentinel),
-        torch.cuda.current_stream(dev).cuda_stream)
+        b, n, kmax, sw_pad, int(sentinel), plan.graph == "shared", plan.threads,
+        plan.vpt, plan.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(err, "bfs_sweep_kernel")
     sweep.launches += 1
+    sweep.shapes[(b, sw_pad)] += 1
     return out
 
 
 sweep.launches = 0
+sweep.shapes = Counter()  # launches by (b, sw_pad)
 
 
 def patch_apply(dist: torch.Tensor, tmp: torch.Tensor,
