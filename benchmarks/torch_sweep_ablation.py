@@ -84,7 +84,8 @@ def build_all(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
         with open(cu, "w") as f:
             f.write(text)
         procs.append((name, so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so, cu],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", os.path.dirname(SOURCE), "-shared",
+             "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {}
     for name, so, proc in procs:
@@ -127,7 +128,7 @@ def main() -> int:
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
 
     n, k, s, b = 8192, 8, 2048, 32
-    full, _ = cs.polish_tables(n, k, b)
+    full = cs.polish_tables(n, k, b)[0]
     nb, vm, F0, _, _ = bs.pack_batch(full, np.arange(s))
     args = tuple(bs.as_words(a, "cuda") for a in (nb, vm, F0))
     want = bs.sweep_rows_ref(*args, n)

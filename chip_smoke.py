@@ -6,7 +6,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, in order; any failure raises and exits non-zero:
 
 1. the device: ``nvidia-smi`` name and power limit, PyTorch's device name;
-2. build the CUDA kernels with nvcc (timed);
+2. build the CUDA kernels with nvcc (timed): ptxas's registers and spills,
+   and the min and add-min opcodes of ``minplus_patch_kernel``'s
+   instantiations in ``cuobjdump -sass``;
 3. ``bfs_sweep_kernel`` against its plain PyTorch version, bit for bit, at
    the shapes the polish launches, from (8192, 8) graphs it prices (the
    pinned circulant and orbit swaps of it): the full re-sweep (b=32, all
@@ -17,13 +19,20 @@ Phases, in order; any failure raises and exits non-zero:
    with their bounds; then small batches that reach every branch of the
    kernel (checked, not timed), each with the instantiation ``sweep_plan``
    gave it;
-4. ``minplus_patch_kernel`` against its plain version at the main path's
-   shape (b=32, s=2048, n=8192, mmax=8);
+4. ``minplus_patch_kernel`` against its plain version, bit for bit: timed
+   at the polish's shape (b=32, s=2048, n=8192, mmax=16) and at the first
+   row's mmax=8, each beside the tile instantiation at the same shape, the
+   plain version and (at mmax=16) ``out.copy_(dist)`` of the same state;
+   on real priced (8192, 8) states (post-removal rows of orbit swaps,
+   patched through ``patch_prologue``, must equal the swapped graphs' rows);
+   then edge cases (mmax 1-64, n % 4 != 0, strips cut short, ragged runs,
+   the largest sums, unaligned tensors; checked, not timed), each with the
+   instantiation ``patch_plan`` gave it;
 5. the main path, ``large_search(8192, 8, replicas=8, proposal_batch=4,
    polish_iters=64)`` on the card, with both kernels' launches counted (the
-   sweep's also by (b, sw_pad)) and the result rechecked; then a short
-   delta=False run, which must follow the same trajectory as delta=True
-   over the same iterations;
+   sweep's also by (b, sw_pad), the patch's by (b, mmax)) and the result
+   rechecked; then a short delta=False run, which must follow the same
+   trajectory as delta=True over the same iterations;
 6. the same search at (2048, 6) on the card and on the CPU (the kernels'
    plain versions): every field must be equal;
 7. the wgmma fragment layouts of ``flash_attention_kernel`` (bf16), then
@@ -167,6 +176,46 @@ def phase_build() -> None:
     log(f"[2] built {os.path.relpath(path, HERE)} in {time.perf_counter() - t0:.2f} s")
     for line in ptxas_summary(out):
         log(f"    {line}")
+    ops = sass_opcodes(path, "minplus_patch")
+    for name, count in sorted(ops.items()):
+        minmax = ", ".join(f"{op} {c}" for op, c in sorted(count.items())
+                           if "MNMX" in op or op == "IADD3")
+        log(f"    SASS {name}: {sum(count.values())} instructions; "
+            f"{minmax or 'no min or max opcodes'}")
+    # each stream instantiation patches 4 columns x M endpoints a row by
+    # Hopper's fused add-min, not by an emulated add and min
+    for m in (1, 2, 4, 8, 16, 32):
+        fused = ops.get(f"minplus_patch_kernel<{m}>", {}).get("VIADDMNMX", 0)
+        check(fused >= 4 * m, f"minplus_patch_kernel<{m}> has {fused} VIADDMNMX, "
+              f"fewer than 4 x {m}")
+
+
+def sass_opcodes(lib, kernel: str) -> dict:
+    """Opcode counts per instantiation of ``kernel`` in ``cuobjdump -sass`` of
+    the built library, keyed "name<template arguments>" (Hopper's DPX fused
+    add-min is VIADDMNMX; an add and a min are IADD3 and IMNMX)."""
+    from collections import Counter
+
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs: dict[str, Counter] = {}
+    ops = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            ops = None
+            if kernel in m.group(1):
+                args = ",".join(re.findall(r"Li(\d+)E", m.group(1)))
+                ops = funcs.setdefault(f"{_kernel_name(m.group(1))}<{args}>", Counter())
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and ops is not None:
+            ops[m.group(1)] += 1
+    check(bool(funcs), f"no {kernel} function in cuobjdump -sass of {lib}")
+    return funcs
 
 
 def _kernel_name(mangled: str) -> str:
@@ -207,19 +256,23 @@ def ptxas_summary(out: str) -> list[str]:
     for name, inst in sorted(kernels.items()):
         regs = [r for _, r, _ in inst]
         spilled = [f"<{a}> {sp} B" for a, _, sp in inst if sp]
-        lines.append(f"{name}: {len(inst)} instantiation(s), {min(regs)}-{max(regs)} registers, "
-                     f"spill stores: {', '.join(spilled) or 'none'}")
+        each = (" (" + ", ".join(f"<{a}> {r}" for a, r, _ in inst) + ")"
+                if len(inst) <= 8 else "")
+        lines.append(f"{name}: {len(inst)} instantiation(s), {min(regs)}-{max(regs)} "
+                     f"registers{each}, spill stores: {', '.join(spilled) or 'none'}")
     lines.append(f"ptxas errors and C75xx notes: {len(notes)}")
     return lines + notes
 
 
 def polish_tables(n: int, k: int, count: int, seed: int = 0,
-                  fold: int = 4) -> tuple[np.ndarray, np.ndarray]:
+                  fold: int = 4) -> tuple[np.ndarray, np.ndarray, list]:
     """(count, n, k) neighbour tables of graphs the polish prices at (n, k):
     the pinned circulant, then count - 1 orbit swaps of it drawn from a
     seeded Generator as a polish iteration draws them (``_draw_orbit_swap``),
     each as the swapped graph (what a full re-sweep prices) and as the
-    post-removal graph (what the delta sweep prices)."""
+    post-removal graph (what the delta sweep prices); and each graph's
+    added edges (None for the circulant), the patch that turns its
+    post-removal rows into the swapped graph's."""
     from repro_torch.core.graphs import circulant
     from repro_torch.core.known_optimal import KNOWN_CIRCULANT_OFFSETS
     from repro_torch.core.search import (_circulant_orbits, _draw_orbit_swap,
@@ -231,16 +284,17 @@ def polish_tables(n: int, k: int, count: int, seed: int = 0,
     rng = np.random.default_rng(seed)
     ch = _PolishChain(rng, sorted(_circulant_orbits(n, s, offsets), key=sorted),
                       circulant(n, offsets).adjacency(), 0.05)
-    full, post = [ch.nbr], [ch.nbr]
+    full, post, added = [ch.nbr], [ch.nbr], [None]
     while len(full) < count:
         mv = _draw_orbit_swap(rng, ch.orb_list, ch.chord_edges, ring, n, s, fold)
         if mv is None:
             continue
         work = mv[5] | mv[4]  # remaining chords | new edges
         removed = sorted(ch.chord_edges - work)
-        full.append(ch.trial_nbr(removed, sorted(work - ch.chord_edges)))
+        added.append(sorted(work - ch.chord_edges))
+        full.append(ch.trial_nbr(removed, added[-1]))
         post.append(ch.trial_nbr(removed, ()))
-    return np.stack(full), np.stack(post)
+    return np.stack(full), np.stack(post), added
 
 
 def sweep_edge_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int]]:
@@ -338,7 +392,7 @@ def phase_sweep(n: int = 8192, k: int = 8, s: int = 2048, b: int = 32) -> dict:
     # iteration; delta=True when one proposal of a dispatch needs a full
     # rebuild), and the delta sweep of 32 post-removal graphs, 0-47
     # affected rows each; this full-shape row is the kernel's row
-    full, post = polish_tables(n, k, b)
+    full, post, _ = polish_tables(n, k, b)
     nb, vm, F0, sw_pad, _ = bs.pack_batch(full, np.arange(s))
     got, main_row = row(f"polish full shape ({k}-regular swaps of the pinned circulant)",
                         (nb, vm, F0), n)
@@ -384,36 +438,138 @@ def phase_sweep(n: int = 8192, k: int = 8, s: int = 2048, b: int = 32) -> dict:
             **main_row, "library_ms": None}
 
 
-def phase_patch(b: int = 32, s: int = 2048, n: int = 8192, mmax: int = 8) -> dict:
+def patch_inputs(rng, b: int, s: int, n: int, mmax: int,
+                 inf_share: float = 0.25) -> tuple[np.ndarray, ...]:
+    """(dist, tmp, crows) int32 numpy arrays of hop counts below 16 and tmp
+    terms below 24, a share of them masked (``PATCH_INF``)."""
+    from repro_torch.kernels import bfs_sweep as bs
+
+    dist = rng.integers(0, 16, (b, s, n), dtype=np.int32)
+    tmp = rng.integers(1, 24, (b, s, mmax), dtype=np.int32)
+    tmp[rng.random(tmp.shape) < inf_share] = bs.PATCH_INF
+    crows = rng.integers(0, 16, (b, mmax, n), dtype=np.int32)
+    return dist, tmp, crows
+
+
+def patch_edge_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, bool]]:
+    """Shapes and values at the edges of ``minplus_patch_kernel``'s
+    instantiations, as (label, dist, tmp, crows, whether the patch must
+    leave dist as it is)."""
+    from repro_torch.kernels import bfs_sweep as bs
+
+    rng = np.random.default_rng(5)
+    cases = []
+    for mmax in (1, 2, 3, 4, 32, 64):
+        cases.append((f"mmax={mmax}", *patch_inputs(rng, 3, 96, 2048, mmax), False))
+    for n in (130, 1001):
+        cases.append((f"n={n} (n % 4 != 0)", *patch_inputs(rng, 2, 40, n, 8), False))
+    for n in (1000, 3000):
+        cases.append((f"n={n} (a strip cut short)", *patch_inputs(rng, 2, 50, n, 16), False))
+    for s in (1, 7):
+        cases.append((f"s={s} (a ragged run)", *patch_inputs(rng, 3, s, 8192, 16), False))
+    cases.append(("b=1", *patch_inputs(rng, 1, 300, 4096, 16), False))
+    dist, tmp, crows = patch_inputs(rng, 2, 64, 2048, 16)
+    tmp[:] = bs.PATCH_INF
+    cases.append(("tmp all PATCH_INF", dist, tmp, crows, True))
+    # the largest sums the polish can make: tmp up to two PATCH_INF terms,
+    # crows and dist at the sentinel n (2 * PATCH_INF + n, inside int32)
+    n = 4096
+    dist = np.full((2, 64, n), n, dtype=np.int32)
+    tmp = np.full((2, 64, 16), 2 * bs.PATCH_INF, dtype=np.int32)
+    crows = np.full((2, 16, n), n, dtype=np.int32)
+    cases.append(("sentinel dist, tmp + crows = 2 PATCH_INF + n", dist, tmp, crows, True))
+    return cases
+
+
+def phase_patch(b: int = 32, s: int = 2048, n: int = 8192, k: int = 8) -> dict:
+    """minplus_patch_kernel against its plain version, bit for bit: timed at
+    the polish's shape (mmax = 16) and at mmax = 8, beside the tile
+    instantiation at the same shapes and a copy of the state; on real
+    priced (8192, 8) states; then at its edge cases (checked, not timed)."""
     import torch
 
     from repro_torch.kernels import bfs_sweep as bs
 
-    gen = torch.Generator(device=DEV).manual_seed(0)
-    dist = torch.randint(0, 16, (b, s, n), generator=gen, device=DEV,
-                         dtype=torch.int32)
-    tmp = torch.randint(1, 24, (b, s, mmax), generator=gen, device=DEV,
-                        dtype=torch.int32)
-    tmp[:, :, mmax - 3:] = int(bs.PATCH_INF)  # masked endpoint slots
-    crows = torch.randint(0, 16, (b, mmax, n), generator=gen, device=DEV,
-                          dtype=torch.int32)
-    got = bs.patch_apply(dist, tmp, crows)
-    want = bs.patch_apply_ref(dist, tmp, crows)
-    torch.cuda.synchronize()
-    check(torch.equal(got, want), "minplus_patch_kernel != patch_apply_ref")
-    check(not torch.equal(got, dist), "patch changed nothing: inputs too weak")
-    err = int((got - want).abs().max())
-    ms = cuda_ms(lambda: bs.patch_apply(dist, tmp, crows))
-    plain_ms = cuda_ms(lambda: bs.patch_apply_ref(dist, tmp, crows), reps=3, n=1)
-    nbytes = (2 * dist.numel() + tmp.numel() + crows.numel()) * 4
-    # add + min per endpoint
-    bms, by, terms = bound(nbytes, [(2 * b * s * n * mmax, INT32_OPS_PER_S)])
-    log(f"[4] patch b={b} s={s} n={n} mmax={mmax}: bit-exact; kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {bms:.3f} ms ({terms})")
+    dev = torch.device(DEV)
+    errs = []
+
+    def run(label, dist, tmp, crows, unchanged=False):
+        """Hold the kernel against its plain version bit for bit; log the
+        instantiation patch_plan gave it."""
+        got = bs.patch_apply(dist, tmp, crows)
+        want = bs.patch_apply_ref(dist, tmp, crows)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"minplus_patch_kernel != patch_apply_ref ({label})")
+        check(torch.equal(got, dist) == unchanged,
+              f"the patch {'changed' if unchanged else 'left'} dist ({label})")
+        errs.append(int((got - want).abs().max()))
+        aligned = all(t.data_ptr() % 16 == 0 for t in (dist, tmp, crows))
+        plan = bs.patch_plan(*dist.shape, crows.shape[1], aligned)
+        ring = (f"{plan.strip}-column strips, {plan.stages} stages of {plan.rows} rows"
+                if plan.kind == "stream" else f"{plan.rows} x {plan.strip} tiles")
+        log(f"    {label}: b, s, n = {tuple(dist.shape)} mmax={crows.shape[1]}, {plan.kind} "
+            f"(mmax {plan.mmax}, {plan.threads} threads, {ring}, {plan.smem_bytes} B): "
+            f"bit-exact")
+        return got
+
+    def timed(mmax, copy):
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        dist = torch.randint(0, 16, (b, s, n), generator=gen, device=DEV, dtype=torch.int32)
+        tmp = torch.randint(1, 24, (b, s, mmax), generator=gen, device=DEV, dtype=torch.int32)
+        tmp[:, :, mmax - 3:] = int(bs.PATCH_INF)  # masked endpoint slots
+        crows = torch.randint(0, 16, (b, mmax, n), generator=gen, device=DEV,
+                              dtype=torch.int32)
+        exact = run(f"timed, mmax={mmax}", dist, tmp, crows)
+        ms = cuda_ms(lambda: bs.patch_apply(dist, tmp, crows))
+        # the tile instantiation at the same shape (the first design)
+        out = torch.empty_like(dist)
+        tile = bs.patch_plan(b, s, n, mmax, aligned=False)
+        bs._launch_patch(dist, tmp, crows, out, tile)
+        torch.cuda.synchronize()
+        check(torch.equal(out, exact), f"tile instantiation != patch_apply_ref (mmax={mmax})")
+        tile_ms = cuda_ms(lambda: bs._launch_patch(dist, tmp, crows, out, tile))
+        plain_ms = cuda_ms(lambda: bs.patch_apply_ref(dist, tmp, crows), reps=3, n=1)
+        # the card's practical streaming rate: a copy of the same state
+        copy_ms = cuda_ms(lambda: out.copy_(dist)) if copy else None
+        nbytes = (2 * dist.numel() + tmp.numel() + crows.numel()) * 4
+        # add + min per element and endpoint
+        bms, by, terms = bound(nbytes, [(2 * b * s * n * mmax, INT32_OPS_PER_S)])
+        copied = "" if copy_ms is None else (
+            f", out.copy_(dist) of {dist.numel() * 4 / 1e9:.2f} GB {copy_ms:.4f} ms")
+        log(f"[4] patch b={b} s={s} n={n} mmax={mmax}: kernel {ms:.4f} ms, tile instantiation "
+            f"{tile_ms:.4f} ms, plain {plain_ms:.3f} ms{copied}; bound {bms:.4f} ms ({terms})")
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+
+    log("[4] minplus_patch_kernel against patch_apply_ref, bit for bit")
+    main_row = timed(16, True)  # the polish's shape: two orbits of 4 edges, 16 endpoints
+    timed(8, False)
+
+    # real priced states: the post-removal rows of the pinned circulant and
+    # orbit swaps of it, patched with their added edges through
+    # patch_prologue, must be the swapped graphs' rows
+    full, post, added = polish_tables(n, k, b)
+    sweep_rows = lambda tables: bs.sweep(*(bs.as_words(a, dev)
+                                           for a in bs.pack_batch(tables, np.arange(s))[:3]), n)
+    state = sweep_rows(post).contiguous()  # (the plain sweep's rows are a transposed view)
+    tmp, crows = bs.patch_prologue(state, *(torch.from_numpy(a).to(dev)
+                                            for a in bs.pack_patch(added, s)))
+    got = run(f"real priced ({n}, {k}) states", state, tmp, crows)
+    check(torch.equal(got, sweep_rows(full)), "patched post-removal rows != swapped graphs' rows")
+    del state, tmp, crows, got
+
+    log("    edge cases:")
+    for label, dist, tmp, crows, unchanged in patch_edge_cases():
+        run(label, *(torch.from_numpy(a).to(dev) for a in (dist, tmp, crows)), unchanged)
+    # tensors that are not 16-byte aligned: dist a view 4 bytes into its storage
+    dist, tmp, crows = patch_inputs(np.random.default_rng(6), 2, 64, 1024, 16)
+    flat = torch.empty(dist.size + 1, dtype=torch.int32, device=dev)
+    view = flat[1:].view(dist.shape)
+    view.copy_(torch.from_numpy(dist))
+    run("unaligned dist (4 bytes into its storage)", view,
+        *(torch.from_numpy(a).to(dev) for a in (tmp, crows)))
     return {"name": "minplus_patch_kernel", "route": "cuda", "source": SWEEP_SOURCE,
-            "replaces": "src/repro/kernels/bfs_sweep.py:361", "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None}
+            "replaces": "src/repro/kernels/bfs_sweep.py:361", "max_abs_err": max(errs),
+            **main_row, "library_ms": None}
 
 
 def _fields(res) -> tuple:
@@ -447,6 +603,7 @@ def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
     try:
         bs.sweep.launches = bs.patch_apply.launches = 0
         bs.sweep.shapes.clear()
+        bs.patch_apply.shapes.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -457,6 +614,7 @@ def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
         launches = {"bfs_sweep_kernel": bs.sweep.launches,
                     "minplus_patch_kernel": bs.patch_apply.launches}
         shapes = dict(sorted(bs.sweep.shapes.items()))
+        patch_shapes = dict(sorted(bs.patch_apply.shapes.items()))
     finally:
         cuda_sweep.sharded_delta_state = orig
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -469,8 +627,13 @@ def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
         f"evals_full={res.evals_full} device_dispatches={res.device_dispatches} "
         f"launches={launches}")
     log(f"    bfs_sweep_kernel launches by (b, sw_pad): {shapes}")
+    log(f"    minplus_patch_kernel launches by (b, mmax): {patch_shapes}")
     check(launches["bfs_sweep_kernel"] > 0 and launches["minplus_patch_kernel"] > 0,
           f"main path did not launch both kernels: {launches}")
+    # two orbits of fold edges a proposal: 2 * 2 * fold endpoints, the shape
+    # phase 4 times
+    check(max(patch_shapes, key=patch_shapes.get) == (replicas * proposal_batch, 4 * fold),
+          f"the polish's most frequent patch shape is not (b, 4 * fold): {patch_shapes}")
 
     # recheck the returned graph from scratch with the sweep over all s rows
     s = n // fold

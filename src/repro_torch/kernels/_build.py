@@ -111,7 +111,7 @@ def library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.bfs_sweep_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.bfs_sweep_launch.restype = i
-        lib.minplus_patch_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.minplus_patch_launch.argtypes = [p, p, p, p] + [i] * 10 + [p]
         lib.minplus_patch_launch.restype = i
         lib.flash_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
         lib.flash_attention_launch.restype = i

@@ -13,10 +13,12 @@ insert patch ``d'(r, y) = min(d(r, y), min_j tmp[r, j] + crows[j, y])``.
 
 Two wrappers launch the hand-written CUDA kernels of
 ``csrc/bfs_sweep.cu``: ``sweep`` (``bfs_sweep_kernel``) and ``patch_apply``
-(``minplus_patch_kernel``).  A CUDA tensor launches the kernel or raises; a
-CPU tensor runs the plain PyTorch version beside it (``sweep_rows_ref``,
-``patch_apply_ref``), which is what the CPU tests compare with the
-reference.  Each wrapper counts its launches in ``<wrapper>.launches``.
+(``minplus_patch_kernel``), each in the instantiation that its plan
+(``sweep_plan``, ``patch_plan``) picks from the shape.  A CUDA tensor
+launches the kernel or raises; a CPU tensor runs the plain PyTorch version
+beside it (``sweep_rows_ref``, ``patch_apply_ref``), which is what the CPU
+tests compare with the reference.  Each wrapper counts its launches in
+``<wrapper>.launches`` and by shape in ``<wrapper>.shapes``.
 
 The numpy packers are copies of the reference's, so both packages lay out
 words, padding and idle lanes identically.  The plain versions hold words as
@@ -54,6 +56,7 @@ __all__ = [
     "BLOCK_WORDS",
     "PATCH_INF",
     "MAX_SWEEP_N",
+    "PatchPlan",
     "SMEM_BYTES",
     "SweepPlan",
     "bfs_rows",
@@ -65,6 +68,7 @@ __all__ = [
     "pack_patch",
     "patch_apply",
     "patch_apply_ref",
+    "patch_plan",
     "patch_prologue",
     "sweep",
     "sweep_plan",
@@ -196,8 +200,8 @@ def pack_patch(patches, s: int) -> tuple[np.ndarray, ...]:
 
 def _row_block(s: int, cap: int = 128) -> int:
     """Largest divisor of ``s`` at most ``cap`` — the reference patch
-    kernel's row-tile height (kept for layout parity; the CUDA kernel tiles
-    rows by a fixed 32 and masks the ragged edge)."""
+    kernel's row-tile height (kept for layout parity; the CUDA kernel cuts
+    rows by its plan and masks the ragged edge)."""
     return max(d for d in range(1, min(s, cap) + 1) if s % d == 0)
 
 
@@ -377,12 +381,86 @@ sweep.launches = 0
 sweep.shapes = Counter()  # launches by (b, sw_pad)
 
 
+# minplus_patch_kernel's stream instantiations: one per endpoint count that
+# pack_patch makes (a power of two), crows kept in registers (4 * mmax)
+_PATCH_TEMPLATES = (1, 2, 4, 8, 16, 32)
+_PATCH_MAX_WARPS = 8  # consumer warps: a strip of up to 1024 columns
+_PATCH_ROWS = 8  # rows per stage: one bulk copy each
+_PATCH_RING_BYTES = 100 * 1024  # the stages of one block; two blocks an SM
+# the tile instantiation: a 1024-thread block per 32 x 128 tile, tmp and
+# crows staged 32 endpoints at a time in 20 KB of static shared memory
+_TILE = (1024, 128, 32, (32 * 32 + 32 * 128) * 4)
+_GRID_Y_Z = 65535
+
+
+class PatchPlan(NamedTuple):
+    """How ``minplus_patch_kernel`` runs one shape.  ``kind`` is "stream"
+    (persistent blocks streaming dist through a ring of ``stages``
+    shared-memory stages of ``rows`` row segments of a ``strip``-column
+    strip, crows in registers; ``mmax`` the template's endpoint count) or
+    "tile" (a block per ``rows`` x ``strip`` tile, any shape; ``mmax`` 0).
+    ``threads`` per block (a stream block's last warp is its producer),
+    ``smem_bytes`` of shared memory per block."""
+
+    kind: str
+    mmax: int
+    threads: int
+    strip: int
+    rows: int
+    stages: int
+    smem_bytes: int
+
+
+def _patch_smem(mmax: int, strip: int, rows: int, stages: int) -> int:
+    """A stream block's shared memory: per stage its dist rows, its tmp rows
+    where they come by bulk copy (mmax % 4 == 0), and two mbarriers."""
+    tmp_bytes = rows * mmax * 4 if mmax % 4 == 0 else 0
+    return stages * (rows * strip * 4 + tmp_bytes + 16)
+
+
+def patch_plan(b: int, s: int, n: int, mmax: int, aligned: bool = True) -> PatchPlan:
+    """The instantiation of ``minplus_patch_kernel`` for (b, s, n) states and
+    ``mmax`` endpoints: "stream" for mmax in 1, 2, 4, ..., 32 with n % 4 == 0
+    and 16-byte ``aligned`` tensors (its strip as wide as n needs, up to 1024
+    columns; its ring of stages within 100 KB, so two blocks share an SM),
+    else "tile", exact for any shape.  Raises for an empty or negative shape
+    and for a tile grid beyond the card's limits."""
+    if min(b, s, n) < 1 or mmax < 0:
+        raise ValueError(f"minplus_patch_kernel takes b, s, n >= 1 and mmax >= 0, "
+                         f"got b={b} s={s} n={n} mmax={mmax}")
+    warps = min(_PATCH_MAX_WARPS, -(-n // (4 * WORD)))
+    strip = 4 * WORD * warps
+    if (mmax in _PATCH_TEMPLATES and n % 4 == 0 and aligned
+            and b * -(-n // strip) * s < 2**31):  # (proposal, strip, row) units
+        stage = _patch_smem(mmax, strip, _PATCH_ROWS, 1)
+        stages = _PATCH_RING_BYTES // stage
+        return PatchPlan("stream", mmax, WORD * (warps + 1), strip, _PATCH_ROWS, stages,
+                         stages * stage)
+    threads, strip, rows, smem = _TILE
+    if b > _GRID_Y_Z or -(-s // rows) > _GRID_Y_Z:
+        raise ValueError(f"minplus_patch_kernel's tile instantiation takes b <= {_GRID_Y_Z} "
+                         f"and s <= {_GRID_Y_Z * rows}, got b={b} s={s}")
+    return PatchPlan("tile", 0, threads, strip, rows, 0, smem)
+
+
+def _launch_patch(dist, tmp, crows, out, plan: PatchPlan) -> None:
+    """Enqueue ``minplus_patch_kernel`` in ``plan``'s instantiation."""
+    b, s, n = dist.shape
+    err = _build.library().minplus_patch_launch(
+        dist.data_ptr(), tmp.data_ptr(), crows.data_ptr(), out.data_ptr(), b, s, n,
+        crows.shape[1], plan.mmax, plan.threads, plan.strip, plan.rows, plan.stages,
+        plan.smem_bytes, torch.cuda.current_stream(dist.device).cuda_stream)
+    _build.raise_on_error(err, "minplus_patch_kernel")
+
+
 def patch_apply(dist: torch.Tensor, tmp: torch.Tensor,
                 crows: torch.Tensor) -> torch.Tensor:
     """Batched min-plus insert patch over (b, s, n) int32 states, with
     (b, s, mmax) ``tmp`` and (b, mmax, n) ``crows`` from ``patch_prologue``.
-    Launches ``minplus_patch_kernel`` on a CUDA tensor; runs
-    ``patch_apply_ref`` on a CPU tensor.  Returns a new tensor."""
+    Launches ``minplus_patch_kernel`` on a CUDA tensor (the instantiation
+    ``patch_plan`` picks; each launch also counts its (b, mmax) in
+    ``patch_apply.shapes``); runs ``patch_apply_ref`` on a CPU tensor.
+    Returns a new tensor."""
     if dist.dim() != 3 or crows.dim() != 3:
         raise ValueError(f"patch_apply takes (b, s, n) and (b, mmax, n) tensors, "
                          f"got {tuple(dist.shape)} and {tuple(crows.shape)}")
@@ -397,15 +475,17 @@ def patch_apply(dist: torch.Tensor, tmp: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"patch_apply runs on a CUDA or CPU tensor, got {dev}")
     out = torch.empty_like(dist)
-    err = _build.library().minplus_patch_launch(
-        dist.data_ptr(), tmp.data_ptr(), crows.data_ptr(), out.data_ptr(),
-        b, s, n, mmax, torch.cuda.current_stream(dev).cuda_stream)
-    _build.raise_on_error(err, "minplus_patch_kernel")
+    if out.numel() == 0:
+        return out
+    aligned = all(t.data_ptr() % 16 == 0 for t in (dist, tmp, crows, out))
+    _launch_patch(dist, tmp, crows, out, patch_plan(b, s, n, mmax, aligned))
     patch_apply.launches += 1
+    patch_apply.shapes[(b, mmax)] += 1
     return out
 
 
 patch_apply.launches = 0
+patch_apply.shapes = Counter()  # launches by (b, mmax)
 
 
 # ------------------------------------------------------------------------------

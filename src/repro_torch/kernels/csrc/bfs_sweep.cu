@@ -39,18 +39,45 @@
 //
 // minplus_patch_kernel
 //   Replaces src/repro/kernels/bfs_sweep.py `_patch_kernel` (built by
-//   `_pallas_patch`): d'(r, y) = min(d(r, y), min_j tmp[r, j] + crows[j, y]).
-//   Bound on this card: reading and writing dist, 2 * b * s * n * 4 bytes,
-//   plus b * mmax * n * 4 bytes of crows, at 3.35 TB/s.
-//   Design: a block owns a 32-row x 128-column tile of one proposal; each of
-//   its 1024 threads owns one column and 4 rows in registers.  tmp[rows, j]
-//   and crows[j, cols] are staged in shared memory 32 endpoints at a time,
-//   so dist is read and written once and crows is re-read from L2 once per
-//   32 rows.  All sums stay below 2^21 + n, inside int32.  `out` may alias
-//   `dist`: each element is read and written by the same thread only.
+//   `_pallas_patch`): d'(r, y) = min(d(r, y), min_j tmp[r, j] + crows[j, y])
+//   over (b, s, n) int32 states, (b, s, mmax) tmp and (b, mmax, n) crows.
+//   Bound on this card at the polish's shape (b = 32, s = 2048, n = 8192,
+//   mmax = 16): bytes, dist read and written plus tmp and crows, 4.32 GB at
+//   3.35 TB/s = 1.288 ms; operations, an add and a min per element and
+//   endpoint, 17.2 G int32 at 16.7 Tops = 1.03 ms.
+//   Design (the "stream" instantiations: mmax = M in 1, 2, 4, ..., 32,
+//   n % 4 == 0, 16-byte aligned tensors):
+//   - Bytes: dist is streamed once, with loads always in flight.  A
+//     persistent block walks an equal share of the (proposal, column strip,
+//     row) units in order.  Its producer lane fills a ring of shared-memory
+//     stages, each `rows` row segments of one strip (one cp.async.bulk a
+//     row, completing on the stage's mbarrier), while the consumer warps
+//     take the oldest stage, patch it in registers, store each row with
+//     16-byte coalesced streaming stores and release the stage.  A consumer
+//     thread owns 4 adjacent columns of the strip.  The polish's plan is 3
+//     stages of 8 rows of 1024 columns (100 KB), two blocks an SM.
+//   - crows stays out of the stream: a thread keeps crows[g, :, its
+//     columns] in registers (4 M of them) and reloads them only when its
+//     block moves to the next (proposal, strip).  Two 9-warp blocks an SM
+//     cap a thread at 96 registers, which M = 16 fills without a spill
+//     because the stage bookkeeping is 32-bit.
+//   - tmp comes with the stage (one bulk copy of its rows, contiguous in
+//     tmp[g]) and is read as 16-byte broadcasts; for M = 1 and 2 (rows not
+//     16-byte aligned) from L1.
+//   - Operations: __viaddmin_s32, Hopper's fused add-min (DPX), one
+//     VIADDMNMX per element and endpoint instead of an add and a min
+//     (ptxas also fuses a plain min(a, t + c) into it).
+//   All sums stay below 2^21 + n, inside int32.
+//   The "tile" instantiation (a block per 32-row x 128-column tile, tmp and
+//   crows staged in shared memory 32 endpoints at a time) covers every
+//   other shape exactly, untuned: n % 4 != 0, other mmax, unaligned
+//   tensors.  patch_plan (kernels/bfs_sweep.py) picks the instantiation and
+//   the ring; the launcher checks the plan against the shape.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -342,22 +369,20 @@ bfs_sweep_kernel(const int32_t* __restrict__ nb, const uint32_t* __restrict__ vm
 // What a launch needs besides its arguments, looked up once per device and
 // instantiation: the SM count, and the blocks of this shape an SM holds.
 // (Host statics without a lock: launches come from one host thread.)
-struct SweepLaunchInfo {
+struct LaunchInfo {
   int threads = 0, smem = -1, blocks = 0;
 };
 constexpr int kMaxDevices = 64;
 
-template <int VPT, int GRAPH>
-cudaError_t launch_sweep(const int32_t* nb, const uint32_t* vm, const uint32_t* f0,
-                         int32_t* dist, int b, int n, int kmax, int sw_pad,
-                         int sentinel, int threads, int smem, cudaStream_t stream) {
-  static SweepLaunchInfo info[kMaxDevices];
-  auto kern = bfs_sweep_kernel<VPT, GRAPH>;
+// the persistent grid of `kern` at this block shape: every SM full
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kern, LaunchInfo (&info)[kMaxDevices], int threads, int smem,
+                            int* blocks) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  SweepLaunchInfo& li = info[dev];
+  LaunchInfo& li = info[dev];
   if (li.threads != threads || li.smem != smem) {
     int sms = 0, per_sm = 0;
     if ((e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
@@ -369,60 +394,236 @@ cudaError_t launch_sweep(const int32_t* nb, const uint32_t* vm, const uint32_t* 
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     li = {threads, smem, sms * per_sm};
   }
+  *blocks = li.blocks;
+  return cudaSuccess;
+}
+
+template <int VPT, int GRAPH>
+cudaError_t launch_sweep(const int32_t* nb, const uint32_t* vm, const uint32_t* f0,
+                         int32_t* dist, int b, int n, int kmax, int sw_pad,
+                         int sentinel, int threads, int smem, cudaStream_t stream) {
+  static LaunchInfo info[kMaxDevices];
+  auto kern = bfs_sweep_kernel<VPT, GRAPH>;
+  int blocks = 0;
+  const cudaError_t e = resident_blocks(kern, info, threads, smem, &blocks);
+  if (e != cudaSuccess) return e;
   const int items = b * sw_pad;
-  kern<<<items < li.blocks ? items : li.blocks, threads, smem, stream>>>(
+  kern<<<items < blocks ? items : blocks, threads, smem, stream>>>(
       nb, vm, f0, dist, b, n, kmax, sw_pad, sentinel);
   return cudaGetLastError();
 }
 
-constexpr int kPatchX = 128;   // columns per block, one per thread
-constexpr int kPatchY = 8;     // thread rows per block
-constexpr int kPatchRPT = 4;   // rows per thread
-constexpr int kPatchRows = kPatchY * kPatchRPT;
-constexpr int kPatchM = 32;    // endpoints staged per pass
+// ---- minplus_patch_kernel ------------------------------------------------
 
-__global__ void __launch_bounds__(kPatchX * kPatchY)
-minplus_patch_kernel(const int32_t* dist, const int32_t* __restrict__ tmp,
-                     const int32_t* __restrict__ crows, int32_t* out,
-                     int s, int n, int mmax) {
-  __shared__ int32_t ts[kPatchRows][kPatchM];
-  __shared__ int32_t cs[kPatchM][kPatchX];
+constexpr int kPatchMaxWarps = 8;      // consumer warps: a strip of up to 1024 columns
+constexpr int kPatchThreads = 32 * (kPatchMaxWarps + 1);
+constexpr int kPatchMaxStages = 32;
+constexpr int kPatchMaxRows = 64;
+
+// dynamic shared memory of a stream instantiation: the stages (dist rows,
+// then tmp rows where they come by bulk copy), then two mbarriers a stage
+__host__ __device__ constexpr int patch_stage_bytes(int m, int strip, int rows) {
+  return rows * strip * 4 + (m % 4 == 0 ? rows * m * 4 : 0);
+}
+__host__ __device__ constexpr int patch_smem(int m, int strip, int rows, int stages) {
+  return stages * (patch_stage_bytes(m, strip, rows) + 16);
+}
+
+// a = min(a, t + c) in each lane, by the fused add-min
+__device__ __forceinline__ void addmin4(int4& a, int32_t t, const int4& c) {
+  a.x = __viaddmin_s32(t, c.x, a.x);
+  a.y = __viaddmin_s32(t, c.y, a.y);
+  a.z = __viaddmin_s32(t, c.z, a.z);
+  a.w = __viaddmin_s32(t, c.w, a.w);
+}
+
+// The block's share of the b * strips * s (proposal, strip, row) units
+// (< 2^31, checked at launch, so 32-bit bookkeeping: registers are what
+// the instantiations run short of), cut into stages of at most `rows` rows
+// of one (proposal, strip); producer and consumers walk the same sequence.
+struct PatchStage {
+  int gs;         // proposal * strips + strip
+  int row;        // first row, as g * s + r
+  int g, x0, nr;  // proposal, first column, rows
+};
+
+__device__ __forceinline__ PatchStage patch_stage(int pos, int end, int s, int strips,
+                                                  int strip, int rows) {
+  PatchStage st;
+  st.gs = pos / s;
+  const int r = pos - st.gs * s;
+  st.g = st.gs / strips;
+  st.x0 = (st.gs - st.g * strips) * strip;
+  st.row = st.g * s + r;
+  st.nr = min(min(rows, s - r), end - pos);
+  return st;
+}
+
+template <int M>
+__global__ void __launch_bounds__(kPatchThreads, M <= 16 ? 2 : 1)
+minplus_patch_kernel(const int32_t* __restrict__ dist, const int32_t* __restrict__ tmp,
+                     const int32_t* __restrict__ crows, int32_t* __restrict__ out, int b,
+                     int s, int n, int strip, int rows, int stages) {
+  constexpr bool kTmpBulk = M % 4 == 0;
+  extern __shared__ __align__(128) uint8_t ring[];  // the stages, then their mbarriers
+  const int consumers = blockDim.x - 32;
+  const int strips = (n + strip - 1) / strip;
+  const int seg = rows * strip * 4;
+  const int sb = patch_stage_bytes(M, strip, rows);
+  const uint32_t base = smem_addr(ring);
+  const uint32_t bar0 = base + stages * sb;
+  auto full = [&](int k) { return bar0 + 16 * k; };
+  auto empty = [&](int k) { return bar0 + 16 * k + 8; };
+  const long long units = (long long)b * strips * s;
+  const int begin = (int)(units * blockIdx.x / gridDim.x);
+  const int end = (int)(units * (blockIdx.x + 1) / gridDim.x);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int k = 0; k < stages; ++k) {
+      mbar_init(full(k), 1);
+      mbar_init(empty(k), consumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= consumers) {
+    // the producer: each stage's row segments (and tmp rows) into a stage
+    // that every consumer warp has released
+    if (tid != consumers) return;
+    int it = 0;
+    for (int pos = begin; pos < end; ++it) {
+      const PatchStage st = patch_stage(pos, end, s, strips, strip, rows);
+      const int cols = min(strip, n - st.x0);
+      const int k = it % stages;
+      if (it >= stages) mbar_wait(empty(k), (it / stages - 1) & 1);
+      mbar_expect_tx(full(k), st.nr * cols * 4 + (kTmpBulk ? st.nr * M * 4 : 0));
+      const uint32_t dst = base + k * sb;
+      for (int i = 0; i < st.nr; ++i)
+        bulk_load(dst + i * strip * 4, dist + (long long)(st.row + i) * n + st.x0, cols * 4,
+                  full(k));
+      if constexpr (kTmpBulk)
+        bulk_load(dst + seg, tmp + (long long)st.row * M, st.nr * M * 4, full(k));
+      pos += st.nr;
+    }
+    return;
+  }
+
+  // the consumers: thread tid owns columns x0 + 4 tid .. + 3 of each row
+  const int xt = 4 * tid;
+  int4 c[M];  // crows[g, j, those columns]
+  int cur = -1;
+  int it = 0;
+  for (int pos = begin; pos < end; ++it) {
+    const PatchStage st = patch_stage(pos, end, s, strips, strip, rows);
+    const int x = st.x0 + xt;
+    const bool on = x < n;  // n % 4 == 0: all four columns or none
+    if (st.gs != cur) {
+      cur = st.gs;
+      if (on) {
+#pragma unroll
+        for (int j = 0; j < M; ++j)
+          c[j] = __ldg(reinterpret_cast<const int4*>(crows + ((long long)st.g * M + j) * n + x));
+      }
+    }
+    const int k = it % stages;
+    mbar_wait(full(k), (it / stages) & 1);
+    const uint8_t* stage = ring + k * sb;
+    if (on) {
+#pragma unroll 2
+      for (int i = 0; i < st.nr; ++i) {
+        int4 a = *reinterpret_cast<const int4*>(stage + (i * strip + xt) * 4);
+        if constexpr (kTmpBulk) {
+          const int4* tr = reinterpret_cast<const int4*>(stage + seg + i * M * 4);
+#pragma unroll
+          for (int j = 0; j < M; j += 4) {
+            const int4 t = tr[j / 4];  // the same 16 bytes for every lane
+            addmin4(a, t.x, c[j]);
+            addmin4(a, t.y, c[j + 1]);
+            addmin4(a, t.z, c[j + 2]);
+            addmin4(a, t.w, c[j + 3]);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < M; ++j)
+            addmin4(a, __ldg(tmp + (long long)(st.row + i) * M + j), c[j]);
+        }
+        // evict-first: the state outruns the L2
+        __stcs(reinterpret_cast<int4*>(out + (long long)(st.row + i) * n + x), a);
+      }
+    }
+    __syncwarp();
+    if ((tid & 31) == 0) mbar_arrive(empty(k));  // this warp is done with the stage
+    pos += st.nr;
+  }
+}
+
+// The "tile" instantiation: any n, mmax and alignment.
+constexpr int kTileX = 128;   // columns per block, one per thread
+constexpr int kTileY = 8;     // thread rows per block
+constexpr int kTileRPT = 4;   // rows per thread
+constexpr int kTileRows = kTileY * kTileRPT;
+constexpr int kTileM = 32;    // endpoints staged per pass
+constexpr int kTileSmem = (kTileRows * kTileM + kTileM * kTileX) * 4;
+
+__global__ void __launch_bounds__(kTileX * kTileY)
+minplus_patch_tile_kernel(const int32_t* __restrict__ dist, const int32_t* __restrict__ tmp,
+                          const int32_t* __restrict__ crows, int32_t* __restrict__ out,
+                          int s, int n, int mmax) {
+  __shared__ int32_t ts[kTileRows][kTileM];
+  __shared__ int32_t cs[kTileM][kTileX];
   const long long g = blockIdx.z;
   const long long nn = n;
-  const int y = blockIdx.x * kPatchX + threadIdx.x;
-  const int r0 = blockIdx.y * kPatchRows;
-  const int tid = threadIdx.y * kPatchX + threadIdx.x;
+  const int y = blockIdx.x * kTileX + threadIdx.x;
+  const int r0 = blockIdx.y * kTileRows;
+  const int tid = threadIdx.y * kTileX + threadIdx.x;
 
-  int32_t acc[kPatchRPT];
+  int32_t acc[kTileRPT];
 #pragma unroll
-  for (int i = 0; i < kPatchRPT; ++i) {
-    const int r = r0 + threadIdx.y + i * kPatchY;
+  for (int i = 0; i < kTileRPT; ++i) {
+    const int r = r0 + threadIdx.y + i * kTileY;
     acc[i] = (r < s && y < n) ? dist[(g * s + r) * nn + y] : 0;
   }
-  for (int j0 = 0; j0 < mmax; j0 += kPatchM) {
-    const int mc = min(kPatchM, mmax - j0);
-    for (int e = tid; e < kPatchRows * kPatchM; e += kPatchX * kPatchY) {
-      const int rr = e / kPatchM, jj = e % kPatchM, r = r0 + rr;
+  for (int j0 = 0; j0 < mmax; j0 += kTileM) {
+    const int mc = min(kTileM, mmax - j0);
+    for (int e = tid; e < kTileRows * kTileM; e += kTileX * kTileY) {
+      const int rr = e / kTileM, jj = e % kTileM, r = r0 + rr;
       ts[rr][jj] = (r < s && jj < mc) ? tmp[(g * s + r) * mmax + j0 + jj] : 0;
     }
-    for (int e = tid; e < kPatchM * kPatchX; e += kPatchX * kPatchY) {
-      const int jj = e / kPatchX, xx = e % kPatchX, yy = blockIdx.x * kPatchX + xx;
+    for (int e = tid; e < kTileM * kTileX; e += kTileX * kTileY) {
+      const int jj = e / kTileX, xx = e % kTileX, yy = blockIdx.x * kTileX + xx;
       cs[jj][xx] = (jj < mc && yy < n) ? crows[(g * mmax + j0 + jj) * nn + yy] : 0;
     }
     __syncthreads();
     for (int jj = 0; jj < mc; ++jj) {
       const int32_t c = cs[jj][threadIdx.x];
 #pragma unroll
-      for (int i = 0; i < kPatchRPT; ++i)
-        acc[i] = min(acc[i], ts[threadIdx.y + i * kPatchY][jj] + c);
+      for (int i = 0; i < kTileRPT; ++i)
+        acc[i] = min(acc[i], ts[threadIdx.y + i * kTileY][jj] + c);
     }
     __syncthreads();
   }
 #pragma unroll
-  for (int i = 0; i < kPatchRPT; ++i) {
-    const int r = r0 + threadIdx.y + i * kPatchY;
+  for (int i = 0; i < kTileRPT; ++i) {
+    const int r = r0 + threadIdx.y + i * kTileY;
     if (r < s && y < n) out[(g * s + r) * nn + y] = acc[i];
   }
+}
+
+template <int M>
+cudaError_t launch_patch(const int32_t* dist, const int32_t* tmp, const int32_t* crows,
+                         int32_t* out, int b, int s, int n, int threads, int strip, int rows,
+                         int stages, int smem, cudaStream_t stream) {
+  static LaunchInfo info[kMaxDevices];
+  auto kern = minplus_patch_kernel<M>;
+  int blocks = 0;
+  const cudaError_t e = resident_blocks(kern, info, threads, smem, &blocks);
+  if (e != cudaSuccess) return e;
+  const long long units = (long long)b * ((n + strip - 1) / strip) * s;
+  kern<<<units < blocks ? (int)units : blocks, threads, smem, stream>>>(
+      dist, tmp, crows, out, b, s, n, strip, rows, stages);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -467,15 +668,43 @@ int bfs_sweep_launch(const void* nb, const void* vm, const void* f0, void* dist,
   return cudaErrorInvalidValue;
 }
 
-int minplus_patch_launch(const void* dist, const void* tmp, const void* crows,
-                         void* out, int b, int s, int n, int mmax, void* stream) {
-  if (b == 0 || s == 0 || n == 0) return cudaSuccess;
-  const dim3 grid((n + kPatchX - 1) / kPatchX, (s + kPatchRows - 1) / kPatchRows, b);
-  minplus_patch_kernel<<<grid, dim3(kPatchX, kPatchY), 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(dist), static_cast<const int32_t*>(tmp),
-      static_cast<const int32_t*>(crows), static_cast<int32_t*>(out), s, n, mmax);
-  return cudaGetLastError();
+int minplus_patch_launch(const void* dist, const void* tmp, const void* crows, void* out,
+                         int b, int s, int n, int mmax, int stream_m, int threads, int strip,
+                         int rows, int stages, int smem, void* stream) {
+  if (b <= 0 || s <= 0 || n <= 0 || mmax < 0) return cudaErrorInvalidValue;
+  const auto* d_ = static_cast<const int32_t*>(dist);
+  const auto* t_ = static_cast<const int32_t*>(tmp);
+  const auto* c_ = static_cast<const int32_t*>(crows);
+  auto* o_ = static_cast<int32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  // the plan (kernels/bfs_sweep.py patch_plan) must fit the shape
+  if (stream_m == 0) {
+    if (threads != kTileX * kTileY || strip != kTileX || rows != kTileRows || stages != 0 ||
+        smem != kTileSmem || b > 65535 || (s + kTileRows - 1) / kTileRows > 65535)
+      return cudaErrorInvalidValue;
+    const dim3 grid((n + kTileX - 1) / kTileX, (s + kTileRows - 1) / kTileRows, b);
+    minplus_patch_tile_kernel<<<grid, dim3(kTileX, kTileY), 0, st>>>(d_, t_, c_, o_, s, n, mmax);
+    return cudaGetLastError();
+  }
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(dist) | reinterpret_cast<uintptr_t>(tmp) |
+                         reinterpret_cast<uintptr_t>(crows) | reinterpret_cast<uintptr_t>(out);
+  if (mmax != stream_m || n % 4 != 0 || (addr & 15u) != 0 || threads % 32 != 0 ||
+      threads < 64 || threads > kPatchThreads || strip != 4 * (threads - 32) ||
+      (long long)b * ((n + strip - 1) / strip) * s > 0x7FFFFFFF || rows < 1 ||
+      rows > kPatchMaxRows || stages < 1 || stages > kPatchMaxStages ||
+      smem != patch_smem(mmax, strip, rows, stages))
+    return cudaErrorInvalidValue;
+#define PATCH_CASE(M) \
+  if (mmax == M)      \
+  return launch_patch<M>(d_, t_, c_, o_, b, s, n, threads, strip, rows, stages, smem, st)
+  PATCH_CASE(1);
+  PATCH_CASE(2);
+  PATCH_CASE(4);
+  PATCH_CASE(8);
+  PATCH_CASE(16);
+  PATCH_CASE(32);
+#undef PATCH_CASE
+  return cudaErrorInvalidValue;
 }
 
 const char* repro_cuda_error_string(int err) {

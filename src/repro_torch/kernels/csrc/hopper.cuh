@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, ssd_scan.cu): mbarriers, TMA loads, wgmma
-// descriptors and products, the accumulator fragment's layout, and the
-// host-side encoding of TMA tensor maps.  Each source that includes it gets
+// Hopper (sm_90a) building blocks shared by the port's kernels
+// (flash_attention.cu, ssd_scan.cu, and bfs_sweep.cu's patch): mbarriers,
+// bulk copies and TMA loads, wgmma descriptors and products, the
+// accumulator fragment's layout, and the host-side encoding of TMA tensor
+// maps.  Each source that includes it gets
 // its own copy (an anonymous namespace).
 
 #pragma once
