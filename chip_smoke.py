@@ -15,14 +15,17 @@ Phases, in order; any failure raises and exits non-zero:
    2048 representative rows, sw_pad=64), the kernel's row, and a delta
    batch (b=32, 0-47 affected rows each); then the first two rows this
    script timed (four (8192, <=8) graphs from 2048 sources, one
-   disconnected; a delta batch of degree-8, 6 and 4 circulants), all timed
-   with their bounds; then small batches that reach every branch of the
-   kernel (checked, not timed), each with the instantiation ``sweep_plan``
-   gave it;
+   disconnected; a delta batch of degree-8, 6 and 4 circulants), and the
+   symmetric polish's b=1 shapes (24, 48 and 500 affected rows of a
+   post-removal graph, sw_pad 1, 2 and 16; a full rebuild, sw_pad 64), all
+   timed with their bounds; then small batches that reach every branch of
+   the kernel (checked, not timed), each with the instantiation
+   ``sweep_plan`` gave it;
 4. ``minplus_patch_kernel`` against its plain version, bit for bit: timed
-   at the polish's shape (b=32, s=2048, n=8192, mmax=16) and at the first
-   row's mmax=8, each beside the tile instantiation at the same shape, the
-   plain version and (at mmax=16) ``out.copy_(dist)`` of the same state;
+   at the polish's shape (b=32, s=2048, n=8192, mmax=16), at the first
+   row's mmax=8, and at the symmetric polish's b=1, mmax=16, each beside
+   the tile instantiation at the same shape, the plain version and (at
+   b=32, mmax=16) ``out.copy_(dist)`` of the same state;
    on real priced (8192, 8) states (post-removal rows of orbit swaps,
    patched through ``patch_prologue``, must equal the swapped graphs' rows);
    then edge cases (mmax 1-64, n % 4 != 0, strips cut short, ragged runs,
@@ -35,35 +38,53 @@ Phases, in order; any failure raises and exits non-zero:
    trajectory as delta=True over the same iterations;
 6. the same search at (2048, 6) on the card and on the CPU (the kernels'
    plain versions): every field must be equal;
-7. the wgmma fragment layouts of ``flash_attention_kernel`` (bf16), then
-   the kernel and ``flash_attention_fp32_kernel`` against their plain
+7. the default large-N call, ``large_search(8192, 8, seed=0, fold=4,
+   polish_iters=200)`` with replicas=1: ``symmetric_sa_search`` priced by
+   ``SymmetricAPSP`` on the card, with its time in ``evaluate_swap`` and
+   ``commit``, its host<->device bytes, both kernels' launches by shape,
+   peak memory and a 20-iteration profile; the result rechecked;
+8. the reference benchmark's pinned ``symmetric_sa_search(8192, 8,
+   n_iter=6, fold=8)`` on the card, rechecked;
+9. replicas=1 on the card and on the CPU, every field equal: the default
+   call at (2048, 6), the compound-move case at (64, 6), a compound
+   proposal at (2048, 6) whose patch takes the tile instantiation (mmax
+   64), and a disconnecting orbit swap and its recovery on
+   ``SymmetricAPSP``;
+10. the batched circulant pricer: ``circulant_search(8192, 8, seed=1,
+    n_iter=400)`` with ``engine="torch"`` on the card and
+    ``engine="numpy"``, the same trajectory, both timed; then
+    ``large_search(8192, 8, seed=1)`` end to end (the hillclimb runs),
+    rechecked;
+11. the wgmma fragment layouts of ``flash_attention_kernel`` (bf16), then
+    the kernel and ``flash_attention_fp32_kernel`` against their plain
    version at the serving shape (b=4, h=kv=32, s=1024, hd=80, bf16,
    causal), at a GQA, ``q_offset`` and ragged case (h=32, kv=8, sq=200,
    skv=328) in bf16 and fp32, at head dims 16, 64, 112 and 128 in both
    dtypes, non-causal, on a ragged 19-row tile and with keys ending inside
    a tile, with ``scaled_dot_product_attention`` timed beside it as a
    yardstick;
-8. the wgmma fragment layouts of ``ssd_intra_chunk_kernel`` (bf16), then
+12. the wgmma fragment layouts of ``ssd_intra_chunk_kernel`` (bf16), then
    the kernel and ``ssd_intra_chunk_fp32_kernel`` against their plain
    version at the serving shape (b*h=320, s=1024, p=n=64, chunk 256, bf16
    x/B/C) and at eight smaller shapes (p 8..128, n 16..128, chunks
    8..512; bf16 down to the domain's edge, chunk 64 and p = n = 16), and a
    bf16 chunk outside the domain refused;
-9. the serving path: ``ServingEngine`` on zamba2-2.7b at full width and
+13. the serving path: ``ServingEngine`` on zamba2-2.7b at full width and
    full depth (54 Mamba2 layers, 9 applications of the shared attention
    block), bf16, seeded weights, 4 slots, 8 requests of 1024-token prompts
    in 2 waves, 32 greedy tokens each; both model kernels' launches counted
    (9 and 54 per prefill), TTFT, decode latency, throughput, peak memory,
    and a ``torch.profiler`` readout of one prefill, with each hand-written
    kernel's device time and launches;
-10. zamba2-2.7b at full width, depth 6 (one stage), float32, on the card
+14. zamba2-2.7b at full width, depth 6 (one stage), float32, on the card
     and on the CPU: prefill and decode logits within a stated tolerance and
     the same greedy tokens.
 
 It prints one ``{"kernels": [...]}`` JSON line (per kernel: launches on the
-main path, the largest difference from the plain version, kernel, plain and
-library times from CUDA events around a run of calls, and the least time
-the card could take), then the
+main paths (the BFS kernels: phases 5 and 7; the model kernels: phase 13),
+the largest difference from the plain version, kernel, plain and library
+times from CUDA events around a run of calls, and the least time the card
+could take), then the
 ``{"ok": true, "device": {...}}`` line last.  It imports nothing of JAX or
 of the JAX package ``repro``.  Without CUDA, or outside a checkout, it exits
 non-zero and prints no result.
@@ -408,6 +429,17 @@ def phase_sweep(n: int = 8192, k: int = 8, s: int = 2048, b: int = 32) -> dict:
     nb, vm, F0, _, _, _ = bs.pack_delta_batch(post, srcs, s)
     row("polish delta shape (post-removal tables)", (nb, vm, F0), n)
 
+    # the symmetric polish (replicas=1) sweeps one graph at a time: a swap's
+    # affected rows on its post-removal graph (up to 32 rows: sw_pad 1; up
+    # to 64: sw_pad 2; 481-512: sw_pad 16) and, on a full rebuild, all 2048
+    # rows of the swapped graph (sw_pad 64)
+    rng = np.random.default_rng(1)
+    for m in (24, 48, 500):
+        nb, vm, F0, _, _ = bs.pack_batch(post[1:2], np.sort(rng.choice(s, m, replace=False)))
+        row(f"symmetric polish, {m} affected rows (a post-removal table)", (nb, vm, F0), n)
+    nb, vm, F0, _, _ = bs.pack_batch(full[1:2], np.arange(s))
+    row("symmetric polish, full rebuild (a swapped table)", (nb, vm, F0), n)
+
     # the rows this script timed first, kept for continuity: the pinned (8192, 8)
     # circulant and three more graphs from 2048 sources (the fourth graph is
     # disconnected: a bit-exactness check, not a shape the polish prices),
@@ -512,7 +544,7 @@ def phase_patch(b: int = 32, s: int = 2048, n: int = 8192, k: int = 8) -> dict:
             f"bit-exact")
         return got
 
-    def timed(mmax, copy):
+    def timed(mmax, copy, b=b):
         gen = torch.Generator(device=DEV).manual_seed(0)
         dist = torch.randint(0, 16, (b, s, n), generator=gen, device=DEV, dtype=torch.int32)
         tmp = torch.randint(1, 24, (b, s, mmax), generator=gen, device=DEV, dtype=torch.int32)
@@ -543,6 +575,7 @@ def phase_patch(b: int = 32, s: int = 2048, n: int = 8192, k: int = 8) -> dict:
     log("[4] minplus_patch_kernel against patch_apply_ref, bit for bit")
     main_row = timed(16, True)  # the polish's shape: two orbits of 4 edges, 16 endpoints
     timed(8, False)
+    timed(16, False, b=1)  # the symmetric polish (replicas=1): one proposal at a time
 
     # real priced states: the post-removal rows of the pinned circulant and
     # orbit swaps of it, patched with their added edges through
@@ -578,6 +611,31 @@ def _fields(res) -> tuple:
             res.offsets)
 
 
+def recheck(res, n: int, k: int, fold: int, warm: float) -> None:
+    """Recheck a search result from scratch with the sweep over all n/fold
+    representative rows of the returned graph: its MPL and diameter, k-regular,
+    invariant under rotation by n/fold, and mpl_lb <= mpl <= ``warm`` (the
+    warm start's MPL)."""
+    from repro_torch.core import metrics
+    from repro_torch.kernels import bfs_sweep as bs
+
+    s = n // fold
+    g = res.graph
+    rows = bs.bfs_rows(metrics._nbr_table(g.adjacency()), np.arange(s), n,
+                       device=DEV)
+    total = rows.sum(dtype=np.int64)
+    check(int(rows.max()) < n, "returned graph is disconnected")
+    check(total / (s * (n - 1)) == res.mpl, "recomputed MPL differs from the reported")
+    check(float(rows.max()) == res.diameter, "recomputed diameter differs")
+    check(g.is_regular() and g.degree() == k, "result is not k-regular")
+    es = set(g.edges)
+    check(all((min((u + s) % n, (v + s) % n), max((u + s) % n, (v + s) % n)) in es
+              for u, v in es), "result is not invariant under rotation by n/fold")
+    check(res.mpl_lb <= res.mpl <= warm, "mpl outside [mpl_lb, warm start]")
+    log(f"    recheck: mpl and diameter reproduced from {s} fresh BFS rows; "
+        f"{k}-regular, rotation-invariant; warm start mpl={warm!r}")
+
+
 def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
                proposal_batch: int = 4, polish_iters: int = 64) -> dict:
     import torch
@@ -585,7 +643,6 @@ def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
     from repro_torch.core.engines import cuda_sweep
     from repro_torch.core.known_optimal import KNOWN_CIRCULANT_OFFSETS
     from repro_torch.core.search import _circulant_profile, large_search
-    from repro_torch.kernels import bfs_sweep as bs
 
     kw = dict(seed=0, fold=fold, replicas=replicas, proposal_batch=proposal_batch)
     # wall time inside the pricing dispatches (each ends in a device->host copy)
@@ -601,9 +658,7 @@ def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
 
     cuda_sweep.sharded_delta_state = timed
     try:
-        bs.sweep.launches = bs.patch_apply.launches = 0
-        bs.sweep.shapes.clear()
-        bs.patch_apply.shapes.clear()
+        _reset_search_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -611,10 +666,7 @@ def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
                            device=DEV, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"bfs_sweep_kernel": bs.sweep.launches,
-                    "minplus_patch_kernel": bs.patch_apply.launches}
-        shapes = dict(sorted(bs.sweep.shapes.items()))
-        patch_shapes = dict(sorted(bs.patch_apply.shapes.items()))
+        launches, shapes, patch_shapes = _search_counts()
     finally:
         cuda_sweep.sharded_delta_state = orig
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -635,25 +687,8 @@ def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
     check(max(patch_shapes, key=patch_shapes.get) == (replicas * proposal_batch, 4 * fold),
           f"the polish's most frequent patch shape is not (b, 4 * fold): {patch_shapes}")
 
-    # recheck the returned graph from scratch with the sweep over all s rows
-    s = n // fold
-    g = res.graph
-    from repro_torch.core import metrics
-
-    rows = bs.bfs_rows(metrics._nbr_table(g.adjacency()), np.arange(s), n,
-                       device=DEV)
-    total = rows.sum(dtype=np.int64)
-    check(int(rows.max()) < n, "returned graph is disconnected")
-    check(total / (s * (n - 1)) == res.mpl, "recomputed MPL differs from the reported")
-    check(float(rows.max()) == res.diameter, "recomputed diameter differs")
-    check(g.is_regular() and g.degree() == k, "result is not k-regular")
-    es = set(g.edges)
-    check(all((min((u + s) % n, (v + s) % n), max((u + s) % n, (v + s) % n)) in es
-              for u, v in es), "result is not invariant under rotation by n/fold")
     warm, _ = _circulant_profile(n, KNOWN_CIRCULANT_OFFSETS[(n, k)])
-    check(res.mpl_lb <= res.mpl <= warm, "mpl outside [mpl_lb, warm start]")
-    log(f"    recheck: mpl and diameter reproduced from {s} fresh BFS rows; "
-        f"{k}-regular, rotation-invariant; warm start mpl={warm!r}")
+    recheck(res, n, k, fold, warm)
 
     # delta=False (sharded_rows_totals) follows the delta=True trajectory;
     # the two pricings are timed in turns (full, delta, delta, full)
@@ -718,6 +753,273 @@ def phase_card_vs_cpu() -> None:
         f"accepted={a.accepted}); cuda {t_gpu:.2f} s, cpu {t_cpu:.2f} s")
 
 
+def _reset_search_counts() -> None:
+    from repro_torch.kernels import bfs_sweep as bs
+
+    bs.sweep.launches = bs.patch_apply.launches = 0
+    bs.sweep.shapes.clear()
+    bs.patch_apply.shapes.clear()
+
+
+def _search_counts() -> tuple[dict, dict, dict]:
+    """Both BFS kernels' launches, and their launches by (b, sw_pad) and by
+    (b, mmax)."""
+    from repro_torch.kernels import bfs_sweep as bs
+
+    return ({"bfs_sweep_kernel": bs.sweep.launches,
+             "minplus_patch_kernel": bs.patch_apply.launches},
+            dict(sorted(bs.sweep.shapes.items())), dict(sorted(bs.patch_apply.shapes.items())))
+
+
+# the symmetric polish's sweep shapes phase 3 times at b = 1: up to 32, up
+# to 64 and 481-512 affected rows, and a full rebuild of 2048 rows
+SYMMETRIC_SWEEP_SHAPES = ((1, 1), (1, 2), (1, 16), (1, 64))
+
+
+def phase_symmetric(n: int = 8192, k: int = 8, fold: int = 4, polish_iters: int = 200) -> dict:
+    """The default large-N call, replicas=1: the circulant warm start, then
+    ``symmetric_sa_search`` priced by ``SymmetricAPSP`` on the card."""
+    import torch
+
+    from repro_torch.core import metrics
+    from repro_torch.core.known_optimal import KNOWN_CIRCULANT_OFFSETS
+    from repro_torch.core.search import _circulant_profile, large_search
+
+    # host time inside the evaluator (evaluate_swap ends in a device->host
+    # copy of the row sums) and the bytes each evaluation copies
+    spent = {"evaluate_swap": 0.0, "commit": 0.0, "evals": 0, "commits": 0,
+             "max_to_host": 0, "max_to_device": 0}
+    evs = []
+    orig_eval, orig_commit = metrics.SymmetricAPSP.evaluate_swap, metrics.SymmetricAPSP.commit
+
+    def timed_eval(ev, *a):
+        if ev not in evs:
+            evs.append(ev)
+        before = (ev.bytes_to_host, ev.bytes_to_device)
+        t = time.perf_counter()
+        out = orig_eval(ev, *a)
+        spent["evaluate_swap"] += time.perf_counter() - t
+        spent["evals"] += 1
+        spent["max_to_host"] = max(spent["max_to_host"], ev.bytes_to_host - before[0])
+        spent["max_to_device"] = max(spent["max_to_device"], ev.bytes_to_device - before[1])
+        return out
+
+    def timed_commit(ev, tok):
+        t = time.perf_counter()
+        orig_commit(ev, tok)
+        spent["commit"] += time.perf_counter() - t
+        spent["commits"] += 1
+
+    metrics.SymmetricAPSP.evaluate_swap = timed_eval
+    metrics.SymmetricAPSP.commit = timed_commit
+    try:
+        _reset_search_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = large_search(n, k, seed=0, fold=fold, polish_iters=polish_iters, device=DEV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, shapes, patch_shapes = _search_counts()
+    finally:
+        metrics.SymmetricAPSP.evaluate_swap = orig_eval
+        metrics.SymmetricAPSP.commit = orig_commit
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(len(evs) == 1, f"expected one evaluator, got {len(evs)}")
+    ev = evs[0]
+    state = (n // fold) * n * 4
+    log(f"[7] large_search({n}, {k}, seed=0, fold={fold}, polish_iters={polish_iters}), "
+        f"replicas=1, on {DEV}: wall {wall:.2f} s; evaluate_swap {spent['evaluate_swap']:.2f} s "
+        f"over {spent['evals']} calls, commit {spent['commit']:.4f} s over {spent['commits']}; "
+        f"peak device memory {peak:.2f} GiB")
+    log(f"    mpl={float(res.mpl)!r} diameter={res.diameter} mpl_lb={res.mpl_lb!r} "
+        f"accepted={res.accepted} evals_delta={res.evals_delta} evals_full={res.evals_full} "
+        f"replicas={res.replicas} launches={launches}")
+    log(f"    copies: host->device {ev.bytes_to_device} B, device->host {ev.bytes_to_host} B "
+        f"in all ({ev.bytes_to_device / polish_iters:.0f} and "
+        f"{ev.bytes_to_host / polish_iters:.0f} B an iteration; the most one evaluation "
+        f"copied: {spent['max_to_device']} and {spent['max_to_host']} B), against a "
+        f"{state} B state")
+    log(f"    bfs_sweep_kernel launches by (b, sw_pad): {shapes}")
+    log(f"    minplus_patch_kernel launches by (b, mmax): {patch_shapes}")
+    # the result is the polish's, or the warm start's if the polish found
+    # nothing better
+    check(spent["evals"] > 0 and res.replicas == 1
+          and res.evals_delta + res.evals_full in (0, spent["evals"]),
+          "the polish was not the symmetric one")
+    check(launches["bfs_sweep_kernel"] > 0 and launches["minplus_patch_kernel"] > 0,
+          f"the symmetric polish did not launch both kernels: {launches}")
+    check(spent["max_to_host"] < state // 16,
+          f"an evaluation copied {spent['max_to_host']} B home, not well under the state")
+    check(max(shapes, key=shapes.get) in SYMMETRIC_SWEEP_SHAPES,
+          f"the symmetric polish's most frequent sweep shape is not timed: {shapes}")
+    # two orbits of fold edges a proposal: 2 * 2 * fold endpoints, the shape
+    # phase 4 times at b = 1
+    check(max(patch_shapes, key=patch_shapes.get) == (1, 4 * fold),
+          f"the symmetric polish's most frequent patch shape is not (1, 4 * fold): "
+          f"{patch_shapes}")
+    warm, _ = _circulant_profile(n, KNOWN_CIRCULANT_OFFSETS[(n, k)])
+    recheck(res, n, k, fold, warm)
+    profile_run(lambda: large_search(n, k, seed=0, fold=fold, polish_iters=20, device=DEV),
+                "20 iterations, replicas=1")
+    return launches
+
+
+def phase_symmetric_pinned(n: int = 8192, k: int = 8, fold: int = 8, n_iter: int = 6) -> None:
+    """The reference benchmark's ``polish_n8192_k8_pallas`` spec on the card."""
+    import torch
+
+    from repro_torch.core.known_optimal import KNOWN_CIRCULANT_OFFSETS
+    from repro_torch.core.search import _circulant_profile, symmetric_sa_search
+
+    offs = KNOWN_CIRCULANT_OFFSETS[(n, k)]
+    _reset_search_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = symmetric_sa_search(n, k, seed=0, n_iter=n_iter, fold=fold, start_offsets=offs,
+                              device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shapes, patch_shapes = _search_counts()
+    log(f"[8] symmetric_sa_search({n}, {k}, seed=0, n_iter={n_iter}, fold={fold}, "
+        f"start_offsets={offs}) on {DEV}: wall {wall:.2f} s; mpl={float(res.mpl)!r} "
+        f"diameter={res.diameter} accepted={res.accepted} evals_delta={res.evals_delta} "
+        f"evals_full={res.evals_full}; launches {launches}, by (b, sw_pad) {shapes}, "
+        f"by (b, mmax) {patch_shapes}")
+    check(res.evals_delta + res.evals_full > 0, "no proposal was priced")
+    recheck(res, n, k, fold, _circulant_profile(n, offs)[0])
+
+
+def phase_symmetric_card_vs_cpu() -> None:
+    """replicas=1 on the card and on the CPU: every field equal."""
+    import torch
+
+    from repro_torch.core import metrics
+    from repro_torch.core.graphs import circulant
+    from repro_torch.core.known_optimal import KNOWN_CIRCULANT_OFFSETS
+    from repro_torch.core.search import (_circulant_orbits, _draw_orbit_swap, large_search,
+                                         symmetric_sa_search)
+
+    cases = [
+        ("large_search(2048, 6, seed=0, fold=4, polish_iters=40)",
+         lambda dev: large_search(2048, 6, seed=0, fold=4, polish_iters=40, device=dev)),
+        ("symmetric_sa_search(64, 6, seed=0, n_iter=800, fold=4, compound moves)",
+         lambda dev: symmetric_sa_search(64, 6, seed=0, n_iter=800, fold=4, t_start=1e-6,
+                                         t_end=1e-9, start_offsets=(1, 9, 23),
+                                         moves_per_step=3, device=dev)),
+    ]
+    for label, fn in cases:
+        _reset_search_counts()
+        t0 = time.perf_counter()
+        a = fn(DEV)
+        t_gpu = time.perf_counter() - t0
+        patch_shapes = _search_counts()[2]
+        t0 = time.perf_counter()
+        b = fn("cpu")
+        t_cpu = time.perf_counter() - t0
+        check(_fields(a) + (a.compound_steps,) == _fields(b) + (b.compound_steps,),
+              f"card and CPU paths differ: {label}")
+        log(f"[9] {label}: card == CPU in every field (mpl={float(a.mpl)!r}, "
+            f"accepted={a.accepted}, evals_delta={a.evals_delta}, evals_full={a.evals_full}, "
+            f"compound_steps={a.compound_steps}); cuda {t_gpu:.2f} s, cpu {t_cpu:.2f} s; "
+            f"minplus_patch_kernel launches by (b, mmax) {patch_shapes}")
+        if "compound" in label:
+            check(a.compound_steps > 0, "no compound step was priced")
+
+    # one compound proposal at (2048, 6), fold 4, as symmetric_sa_search
+    # merges it: three 2-orbit moves, 24 added edges with 48 endpoints, so
+    # mmax 64, beyond the stream templates: the tile instantiation at b = 1
+    n, k, fold = 2048, 6, 4
+    s = n // fold
+    orbits = sorted(_circulant_orbits(n, s, KNOWN_CIRCULANT_OFFSETS[(n, k)]), key=sorted)
+    chords = {e for orb in orbits for e in orb}
+    ring = {(i, (i + 1) % n) for i in range(n - 1)} | {(0, n - 1)}
+    rng = np.random.default_rng(0)
+    work_list, work_chords, moves = orbits, chords, 0
+    while moves < 3:
+        mv = _draw_orbit_swap(rng, work_list, work_chords, ring, n, s, fold)
+        if mv is None:
+            continue
+        i1, i2, no1, no2, new_edges, remaining = mv
+        work_list = [o for i, o in enumerate(work_list) if i not in (i1, i2)] + [no1, no2]
+        work_chords = remaining | new_edges
+        moves += 1
+    removed, added = sorted(chords - work_chords), sorted(work_chords - chords)
+    adj = circulant(n, KNOWN_CIRCULANT_OFFSETS[(n, k)]).adjacency()
+    toks = []
+    for d in (DEV, "cpu"):
+        _reset_search_counts()
+        toks.append(metrics.SymmetricAPSP(adj.copy(), s, device=d).evaluate_swap(removed, added))
+        if d == DEV:
+            patch_shapes = _search_counts()[2]
+    check(torch.equal(toks[0].dist.cpu(), toks[1].dist)
+          and (toks[0].total, toks[0].diam) == (toks[1].total, toks[1].diam),
+          "card and CPU tokens differ on the compound proposal")
+    check((1, 64) in patch_shapes, f"the compound proposal's patch was not mmax 64: {patch_shapes}")
+    log(f"[9] a compound proposal at ({n}, {k}), fold {fold} (three moves: {len(removed)} edges "
+        f"out, {len(added)} in): card == CPU tokens (mpl={toks[0].mpl!r}); "
+        f"minplus_patch_kernel launches by (b, mmax) {patch_shapes}")
+
+    # a disconnecting orbit swap (the ring orbit of C_24(1, 8)) and its
+    # recovery, which a disconnected base forces onto the full path
+    n, s = 24, 6
+    ring = sorted((min(i, (i + 1) % n), max(i, (i + 1) % n)) for i in range(n))
+    evs = [metrics.SymmetricAPSP(circulant(n, [1, 8]).adjacency(), s, device=d)
+           for d in (DEV, "cpu")]
+    for removed, added in ((ring, []), ([], ring)):
+        toks = [ev.evaluate_swap(removed, added) for ev in evs]
+        check(torch.equal(toks[0].dist.cpu(), toks[1].dist)
+              and (toks[0].total, toks[0].diam, toks[0].mpl)
+              == (toks[1].total, toks[1].diam, toks[1].mpl),
+              "card and CPU tokens differ on the disconnect-and-recover swaps")
+        for ev, tok in zip(evs, toks):
+            ev.commit(tok)
+            ev.verify()
+    check((evs[0].n_delta, evs[0].n_full) == (evs[1].n_delta, evs[1].n_full)
+          and evs[0].connected, "card and CPU counters differ after the recovery")
+    log(f"[9] SymmetricAPSP(C_24(1, 8)): the ring orbit removed (mpl inf) and restored, "
+        f"card == CPU tokens, verify() passes, counters (delta, full) = "
+        f"{(evs[0].n_delta, evs[0].n_full)}")
+
+
+def phase_circulant(n: int = 8192, k: int = 8, seed: int = 1, n_iter: int = 400,
+                    polish_iters: int = 100) -> None:
+    """The batched circulant pricer on the card against the numpy pricer,
+    then the default large-N call with no pinned offsets end to end."""
+    import torch
+
+    from repro_torch.core.search import circulant_search, large_search
+
+    runs, walls = {}, {}
+    for engine in ("torch", "numpy", "numpy", "torch"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = circulant_search(n, k, seed=seed, n_iter=n_iter, engine=engine, device=DEV)
+        torch.cuda.synchronize()
+        walls.setdefault(engine, []).append(time.perf_counter() - t0)
+        runs[engine] = (r.graph.edges, r.offsets, r.history, r.iterations, r.accepted,
+                        r.mpl, r.diameter)
+    check(runs["torch"] == runs["numpy"], "torch and numpy circulant trajectories differ")
+    warm = runs["torch"][5]
+    log(f"[10] circulant_search({n}, {k}, seed={seed}, n_iter={n_iter}): torch pricer on "
+        f"{DEV} == numpy pricer (offsets {runs['torch'][1]}, mpl={float(warm)!r}, "
+        f"{len(runs['torch'][2])} history entries); torch {walls['torch']} s, "
+        f"numpy {walls['numpy']} s")
+    _reset_search_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = large_search(n, k, seed=seed, budget=n_iter, polish_iters=polish_iters, device=DEV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, _, _ = _search_counts()
+    log(f"[10] large_search({n}, {k}, seed={seed}, budget={n_iter}, polish_iters="
+        f"{polish_iters}) on {DEV}: wall {wall:.2f} s; mpl={float(res.mpl)!r} "
+        f"diameter={res.diameter} accepted={res.accepted} evals_delta={res.evals_delta} "
+        f"evals_full={res.evals_full} offsets={res.offsets}; launches {launches}")
+    check(launches["bfs_sweep_kernel"] > 0, "the polish did not launch the sweep")
+    recheck(res, n, k, 4, warm)
+
+
 def _attn_pairs(sq: int, skv: int, q_offset: int, causal: bool) -> int:
     """(query, key) pairs the attention computes: the causal part only."""
     if not causal:
@@ -755,7 +1057,7 @@ def phase_flash(b: int = 4, h: int = 32, s: int = 1024, hd: int = 80) -> dict:
         check(err_s <= tol_s and err_o <= tol_o and not bool(o_k[:, hd_:].any()),
               f"wgmma fragment layout wrong at hd={hd_}: S {err_s} (tol {tol_s}), "
               f"O {err_o} (tol {tol_o})")
-        log(f"[7] wgmma fragment layout hd={hd_}: S err {err_s:.3g} (tol {tol_s:.3g}), "
+        log(f"[11] wgmma fragment layout hd={hd_}: S err {err_s:.3g} (tol {tol_s:.3g}), "
             f"bf16(S) V err {err_o:.3g} (tol {tol_o:.3g})")
 
     def qkv(b_, h_, kv_, sq, skv, hd_, dtype):
@@ -797,7 +1099,7 @@ def phase_flash(b: int = 4, h: int = 32, s: int = 1024, hd: int = 80) -> dict:
               f"at b={b_} h={h_} kv={kv_} sq={sq} skv={skv} hd={hd_} q_offset={off} {dtype} "
               f"causal={causal}")
         errs.append(err)
-        log(f"[7] flash b={b_} h={h_} kv={kv_} sq={sq} skv={skv} hd={hd_} q_offset={off} "
+        log(f"[11] flash b={b_} h={h_} kv={kv_} sq={sq} skv={skv} hd={hd_} q_offset={off} "
             f"{str(dtype)[6:]} causal={causal}: max abs err {err:.3g} (tol {tol[dtype]})")
     # timed on the main path's layout: (b, h, s, hd) views of (b, s, h, hd)
     q, k, v = (rnd(b, s, h, hd).to(torch.bfloat16).transpose(1, 2) for _ in range(3))
@@ -855,7 +1157,7 @@ def phase_ssd(bh: int = 320, s: int = 1024, p: int = 64, n: int = 64,
         check(all(e <= t for e, t in zip(errs, tols)),
               f"ssd wgmma fragment layout wrong at n={n_} p={p_}: S, W X, state errors "
               f"{errs} (tols {tols})")
-        log(f"[8] ssd wgmma fragment layout n={n_} p={p_}: S err {errs[0]:.3g}, W X err "
+        log(f"[12] ssd wgmma fragment layout n={n_} p={p_}: S err {errs[0]:.3g}, W X err "
             f"{errs[1]:.3g}, state err {errs[2]:.3g} (tols {', '.join(f'{t:.3g}' for t in tols)})")
 
     def inputs(bh_, s_, p_, n_, dtype):
@@ -896,7 +1198,7 @@ def phase_ssd(bh: int = 320, s: int = 1024, p: int = 64, n: int = 64,
               f"chunk={chunk_} {dtype}: y {err_y} (tol {tol_y}), states {err_s} "
               f"(tol {tol_s})")
         errs.append(max(err_y, err_s))
-        log(f"[8] ssd bh={bh_} s={s_} p={p_} n={n_} chunk={chunk_} {str(dtype)[6:]}: max abs "
+        log(f"[12] ssd bh={bh_} s={s_} p={p_} n={n_} chunk={chunk_} {str(dtype)[6:]}: max abs "
             f"err y {err_y:.3g} (tol {tol_y:.3g}), states {err_s:.3g} (tol {tol_s:.3g})")
     # a bf16 shape outside the kernel's domain raises (no other kernel takes it)
     try:
@@ -962,7 +1264,7 @@ def phase_serve(slots: int = 4, requests: int = 8, prompt_len: int = 1024,
     params = model.init(0)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in params.parameters())
-    log(f"[9] zamba2-2.7b: {n_params / 1e9:.3f} B parameters ({cfg.dtype}) made on "
+    log(f"[13] zamba2-2.7b: {n_params / 1e9:.3f} B parameters ({cfg.dtype}) made on "
         f"{model.device} in {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=prompt_len).astype(np.int32)
@@ -1083,7 +1385,7 @@ def phase_model_card_vs_cpu(depth: int = 6, prompt_len: int = 128, requests: int
         worst.append(err)
     same = all(torch.equal(a, c) for a, c in zip(outs["cpu"][1], outs["card"][1]))
     check(same, "card and CPU greedy tokens differ")
-    log(f"[10] zamba2-2.7b full width, depth {depth}, float32, {requests} x {prompt_len}-token "
+    log(f"[14] zamba2-2.7b full width, depth {depth}, float32, {requests} x {prompt_len}-token "
         f"prompts, {max_new} greedy tokens: card == CPU tokens; logits max abs diff per step "
         f"{[float(f'{e:.3g}') for e in worst]} (atol = rtol = {tol_prefill} for the "
         f"prefill, {tol_decode} for decode); cpu {t_cpu:.2f} s, card {t_card:.2f} s")
@@ -1106,6 +1408,14 @@ def main() -> int:
     kernels = [phase_sweep(), phase_patch()]
     launches = phase_main()
     phase_card_vs_cpu()
+    # the BFS kernels' launches on both search paths: the replica polish
+    # (phase 5) and the default replicas=1 polish (phase 7)
+    sym = phase_symmetric()
+    log(f"    launches on the main paths: replica polish {launches}, symmetric polish {sym}")
+    launches = {name: launches[name] + sym[name] for name in launches}
+    phase_symmetric_pinned()
+    phase_symmetric_card_vs_cpu()
+    phase_circulant()
     kernels += [phase_flash(), phase_ssd()]
     launches.update(phase_serve())
     phase_model_card_vs_cpu()

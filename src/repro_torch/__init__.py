@@ -13,10 +13,14 @@ PyTorch versions and is honoured only when the caller asks for it.
 
 Ported so far:
 
-- the device-priced replica polish,
-  ``repro_torch.core.search.large_search(n, k, replicas=R)``, whose two
-  kernels (the word-packed BFS sweep and the min-plus insert patch) are
-  hand-written CUDA C++ in ``kernels/csrc/bfs_sweep.cu``;
+- the large-N search tier, ``repro_torch.core.search.large_search(n, k)``:
+  the circulant warm start (its batched pricer in
+  ``core.engines.torch_circulant``), then the single-chain
+  ``symmetric_sa_search`` (``replicas=1``, the default; priced by
+  ``core.metrics.SymmetricAPSP``) or the device-priced replica polish
+  (``replicas=R >= 2``).  Both polishes price through two kernels (the
+  word-packed BFS sweep and the min-plus insert patch), hand-written CUDA
+  C++ in ``kernels/csrc/bfs_sweep.cu``;
 - the serving path of the hybrid family (zamba2-2.7b):
   ``configs``, ``models`` (``build_model``, ``Model.init/prefill/
   decode_step``), ``serve.ServingEngine`` and ``launch.serve``, whose two

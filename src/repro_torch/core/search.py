@@ -1,22 +1,28 @@
-"""The large-N tier of the topology search, with the device-priced replica
-polish (the counterpart of ``repro.core.search``'s ``large_search``).
+"""The large-N tier of the topology search (the counterpart of
+``repro.core.search``'s ``large_search``, ``symmetric_sa_search`` and
+``circulant_search``).
 
-``large_search(n, k, replicas=R)`` runs a circulant warm start (a pinned
-offset set, or the numpy-priced hillclimb ``circulant_search``), then
-``_replica_polish``: R lockstep annealing chains whose R*M orbit-swap
-proposals per iteration are priced in one device dispatch through
-``core.engines.cuda_sweep`` — the hand-written CUDA kernels on a CUDA
-device, their plain PyTorch versions when the caller passes
-``device="cpu"``.
+``large_search(n, k)`` runs a circulant warm start (a pinned offset set, or
+the hillclimb ``circulant_search``), then a polish warm-started from it:
+with ``replicas=1`` (the default) ``symmetric_sa_search``, one annealing
+chain whose orbit swaps ``metrics.SymmetricAPSP`` prices incrementally on
+the device; with ``replicas=R >= 2`` ``_replica_polish``, R lockstep chains
+whose R*M proposals per iteration are priced in one device dispatch through
+``core.engines.cuda_sweep``.  Both price through the hand-written CUDA
+kernels on a CUDA device and through their plain PyTorch versions when the
+caller passes ``device="cpu"``.  The hillclimb prices its candidates with
+the numpy pricer, or in batches on the device (``engines.torch_circulant``,
+picked at n >= 4096).
 
 The randomness is the reference's: host numpy Generators,
-``default_rng(seed)`` in the hillclimb and ``default_rng([seed, r])`` per
-chain, consumed in the same order, and every accept is decided on exact
-integer hop totals.  So per seed the port follows the reference's
-trajectory bit for bit and returns the same graph.  ``SearchResult``,
-``_circulant_profile``, ``circulant_search``, ``_orbit``,
-``_draw_orbit_swap`` and ``_circulant_orbits`` are copies of the
-reference's (the hillclimb prices with the numpy pricer only).
+``default_rng(seed)`` in the hillclimb and the single-chain polish and
+``default_rng([seed, r])`` per replica chain, consumed in the same order,
+and every accept is decided on exact integer hop totals.  So per seed the
+port follows the reference's trajectory bit for bit and returns the same
+graph.  ``SearchResult``, ``_mpl_fast``, ``_circulant_profile``,
+``circulant_search``, ``_orbit``, ``_draw_orbit_swap``,
+``_symmetric_random_start``, ``_circulant_orbits`` and
+``symmetric_sa_search`` are copies of the reference's.
 """
 from __future__ import annotations
 
@@ -28,11 +34,11 @@ import torch
 
 from ..device import resolve_device
 from . import metrics
-from .engines import cuda_sweep
+from .engines import cuda_sweep, torch_circulant
 from .graphs import Graph, circulant, from_edges
 from .known_optimal import KNOWN_CIRCULANT_OFFSETS
 
-__all__ = ["SearchResult", "circulant_search", "large_search"]
+__all__ = ["SearchResult", "circulant_search", "large_search", "symmetric_sa_search"]
 
 
 @dataclasses.dataclass
@@ -99,12 +105,28 @@ def _circulant_profile(n: int, offsets) -> tuple[float, float]:
     return total / (n - 1), float(d)
 
 
+CIRCULANT_ENGINES = ("numpy", "torch")
+
+
+def _resolve_circulant(engine: str, n: int) -> str:
+    """The hillclimb's candidate pricer: ``"auto"`` picks ``"torch"`` (the
+    batched device sweep) at n >= 4096, where batch pricing amortises, and
+    ``"numpy"`` (one candidate at a time on the host) below."""
+    if engine == "auto":
+        return "torch" if n >= 4096 else "numpy"
+    if engine not in CIRCULANT_ENGINES:
+        raise ValueError(f"engine={engine!r} must be 'auto', 'numpy' or 'torch'")
+    return engine
+
+
 def circulant_search(
     n: int,
     k: int,
     seed: int = 0,
     n_iter: int = 300,
     include_ring: bool = True,
+    engine: str = "auto",
+    device=None,
 ) -> SearchResult:
     """Random-restart hillclimb over circulant offset sets.
 
@@ -114,11 +136,17 @@ def circulant_search(
     offset list, no graph construction), so 512/1024-vertex searches finish
     in seconds.
 
-    Candidates are priced one at a time with the numpy pricer; the
-    reference's batched ``engine="jax"`` pricer returns the same values and
-    accepts in the same order, so the trajectory is the reference's at a
-    given seed whatever engine it used.
+    ``engine`` selects the candidate pricer: ``"numpy"`` prices candidates
+    one at a time on the host; ``"torch"`` batches each position sweep
+    through ``engines.torch_circulant`` on ``device`` (``None`` is the CUDA
+    device, resolved only when this pricer is picked); ``"auto"`` picks
+    ``"torch"`` at n >= 4096 and ``"numpy"`` below, as the reference picks
+    its ``"jax"`` pricer.  The pricers return identical values and
+    candidates are accepted in the same order, so the trajectory (and the
+    result) is the reference's at a given seed whatever engine either used.
     """
+    engine = _resolve_circulant(engine, n)
+    dev = resolve_device(device) if engine == "torch" else None
     rng = np.random.default_rng(seed)
     half = k // 2
     has_anti = k % 2 == 1  # odd degree needs the antipodal offset n/2
@@ -159,9 +187,10 @@ def circulant_search(
                 cands = pool if len(pool) * len(offs) <= n_iter else \
                     rng.permutation(pool)[: min(32, len(pool))]
                 cands = [int(c) for c in cands]
-                # price the unexamined tail against the current offsets,
-                # lazily; an acceptance mid-sweep restarts the tail against
-                # the new base
+                # price the unexamined tail against the current offsets in
+                # one lazy batch; an acceptance mid-sweep restarts the tail
+                # against the new base — exactly the sequential semantics,
+                # so numpy and torch pricing follow the same trajectory
                 i = 0
                 while i < len(cands):
                     tail = cands[i:]
@@ -178,8 +207,10 @@ def circulant_search(
                             if len(set(fo)) != len(fo):
                                 t = None
                         trials.append(t)
-                    vals = (_circulant_profile(n, full_offsets(t))
-                            for t in trials if t is not None)
+                    batch = [full_offsets(t) for t in trials if t is not None]
+                    vals = (torch_circulant.profile_batch(n, batch, dev)
+                            if engine == "torch" else
+                            (_circulant_profile(n, offs) for offs in batch))
                     adv = len(tail)
                     for j, trial in enumerate(trials):
                         it += 1
@@ -228,6 +259,13 @@ def _orbit(n: int, s: int, u: int, v: int) -> frozenset[tuple[int, int]]:
     return frozenset(out)
 
 
+# compound-move gate: moves_per_step > 1 arms multi-orbit proposals once the
+# single-move accept rate over a _COMPOUND_WINDOW-proposal window drops
+# below _COMPOUND_RATE (the near-convergence collapse)
+_COMPOUND_WINDOW = 50
+_COMPOUND_RATE = 0.05
+
+
 def _draw_orbit_swap(rng, work_list, work_chords, ring_edges, n, s, fold):
     """Draw one 2-orbit swap against ``(work_list, work_chords)``.
 
@@ -261,6 +299,45 @@ def _draw_orbit_swap(rng, work_list, work_chords, ring_edges, n, s, fold):
     return int(i1), int(i2), no1, no2, new_edges, remaining
 
 
+def _symmetric_random_start(
+    n: int, k: int, s: int, rng: np.random.Generator, max_tries: int = 4000
+) -> set[frozenset[tuple[int, int]]] | None:
+    """Random set of chord orbits making ring+chords k-regular, symmetric
+    under rotation by s.  Returns the set of orbits or None."""
+    for _ in range(max_tries):
+        deg = np.full(n, 2)  # ring
+        orbits: set[frozenset[tuple[int, int]]] = set()
+        used: set[tuple[int, int]] = {(i, (i + 1) % n) for i in range(n - 1)} | {(0, n - 1)}
+        fail = False
+        guard = 0
+        while (deg < k).any():
+            guard += 1
+            if guard > 50 * n:
+                fail = True
+                break
+            us = np.where(deg < k)[0]
+            u = int(rng.choice(us))
+            v = int(rng.integers(n))
+            if v == u:
+                continue
+            orb = _orbit(n, s, u, v)
+            if any(e in used for e in orb):
+                continue
+            # degree increment per vertex from this orbit
+            dd = np.zeros(n, dtype=np.int64)
+            for a, b in orb:
+                dd[a] += 1
+                dd[b] += 1
+            if ((deg + dd) > k).any():
+                continue
+            orbits.add(orb)
+            used |= set(orb)
+            deg += dd
+        if not fail and (deg == k).all():
+            return orbits
+    return None
+
+
 def _circulant_orbits(n: int, s: int, offsets) -> set[frozenset[tuple[int, int]]]:
     """Chord-edge orbits (under rotation by s) of circulant C_n(offsets).
 
@@ -275,6 +352,221 @@ def _circulant_orbits(n: int, s: int, offsets) -> set[frozenset[tuple[int, int]]
         for u in range(s):
             orbits.add(_orbit(n, s, u, (u + o) % n))
     return orbits
+
+
+# --------------------------------------------------------------------------------
+# Single-chain orbit polish
+# --------------------------------------------------------------------------------
+
+def _mpl_fast(adj: np.ndarray, n_sources: int | None = None) -> tuple[float, float]:
+    """(MPL, diameter) from a boolean adjacency matrix via frontier BFS.
+
+    Uses float32 matmuls (BLAS) for the frontier expansion.  If ``n_sources``
+    is given, BFS runs only from vertices ``0..n_sources-1`` — valid for
+    graphs whose automorphism group acts with those vertices as orbit
+    representatives (e.g. rotationally symmetric graphs with period
+    ``n_sources``); MPL/diameter over those rows equal the global values.
+    """
+    n = adj.shape[0]
+    s = n_sources or n
+    a32 = adj.astype(np.float32)
+    reach = np.zeros((s, n), dtype=bool)
+    reach[np.arange(s), np.arange(s)] = True
+    frontier = reach.astype(np.float32)
+    total = 0.0
+    d = 0
+    while True:
+        nxt = (frontier @ a32) > 0
+        frontier_b = nxt & ~reach
+        if not frontier_b.any():
+            break
+        d += 1
+        total += d * frontier_b.sum()
+        reach |= frontier_b
+        frontier = frontier_b.astype(np.float32)
+    if not reach.all():
+        return float("inf"), float("inf")
+    return total / (s * (n - 1)), float(d)
+
+
+def symmetric_sa_search(
+    n: int,
+    k: int,
+    seed: int = 0,
+    n_iter: int = 3000,
+    fold: int = 4,
+    t_start: float = 0.05,
+    t_end: float = 1e-4,
+    target_mpl: float | None = None,
+    start_orbits: set[frozenset[tuple[int, int]]] | None = None,
+    start_offsets: tuple[int, ...] | None = None,
+    incremental: bool = True,
+    moves_per_step: int = 1,
+    device=None,
+) -> SearchResult:
+    """SA over *orbit-level* edge swaps of graphs with ``fold``-fold
+    rotational symmetry (paper: 'random iteration of Hamiltonian graphs with
+    rotational symmetry', used for the 252/256/264-vertex graphs).
+
+    The graph stays invariant under rotation by s = n/fold throughout, so the
+    search space shrinks by ~fold× and every accepted design is symmetric.
+    ``start_offsets`` (a circulant offset list, e.g. from
+    ``known_optimal.KNOWN_CIRCULANT_OFFSETS``) warm-starts the walk from that
+    circulant's chord orbits; ``start_orbits`` passes an explicit orbit set
+    instead (mutually exclusive).
+
+    With ``incremental=True`` (the default) proposals are priced by
+    ``metrics.SymmetricAPSP`` on ``device`` — distances delta-updated from
+    only the ``n/fold`` representative sources, batched over the whole orbit
+    swap, through the BFS sweep and min-plus patch kernels.
+    ``incremental=False`` keeps the dense host pricing (``_mpl_fast`` from
+    ``s`` sources per proposal); both paths consume the PRNG identically and
+    the evaluator is exact, so the two trajectories are bit-identical per
+    seed.  ``device``: ``None`` is the CUDA device (raises without one),
+    ``"cpu"`` runs the kernels' plain versions; the reference's ``engine=``
+    has no counterpart.
+
+    ``moves_per_step > 1`` arms compound proposals: once the single-move
+    accept rate collapses near convergence (below ``_COMPOUND_RATE`` over a
+    ``_COMPOUND_WINDOW``-proposal window), each step samples up to
+    ``moves_per_step`` 2-orbit swaps against a working copy of the orbit
+    set and prices the merged multi-orbit change in one batched
+    ``evaluate_swap``.  The default (1) leaves the classic trajectory
+    untouched; compound steps consume extra PRNG draws only after the rate
+    gate opens, so runs remain bit-reproducible per seed.
+    """
+    dev = resolve_device(device)
+    if moves_per_step < 1:
+        raise ValueError(f"moves_per_step={moves_per_step} must be >= 1")
+    fold_i = int(fold)
+    if fold_i != fold or fold_i < 1 or n % fold_i:
+        raise ValueError(
+            f"fold={fold!r} must be a positive integer divisor of n={n}: a "
+            "non-divisor fold would make the rotation orbits irregular")
+    fold = fold_i
+    s = n // fold
+    if start_offsets is not None:
+        if start_orbits is not None:
+            raise ValueError("pass either start_orbits or start_offsets, not both")
+        start_orbits = _circulant_orbits(n, s, start_offsets)
+    rng = np.random.default_rng(seed)
+    orbits = set(start_orbits) if start_orbits is not None else \
+        _symmetric_random_start(n, k, s, rng)
+    if orbits is None:
+        raise RuntimeError(f"no symmetric start found for ({n},{k}) fold={fold}")
+    ring_edges = {(i, (i + 1) % n) for i in range(n - 1)} | {(0, n - 1)}
+
+    def adj_of(orbs) -> np.ndarray:
+        a = np.zeros((n, n), dtype=bool)
+        for i, j in ring_edges:
+            a[i, j] = a[j, i] = True
+        for orb in orbs:
+            for i, j in orb:
+                a[i, j] = a[j, i] = True
+        return a
+
+    gamma = math.exp(math.log(t_end / t_start) / n_iter)
+    adj = adj_of(orbits)
+    ev = metrics.SymmetricAPSP(adj, shift=s, device=dev) if incremental else None
+    if ev is not None:
+        cur_mpl, cur_d = ev.mpl(), ev.diameter()
+    else:
+        cur_mpl, cur_d = _mpl_fast(adj, n_sources=s)
+    best_orbits, best_mpl, best_d = set(orbits), cur_mpl, cur_d
+    lb = metrics.mpl_lower_bound(n, k)
+    tgt = target_mpl if target_mpl is not None else lb
+    t = t_start
+    accepted = 0
+    history = [best_mpl]
+    orb_list = list(orbits)
+    # incremental chord-edge set (excludes ring edges)
+    chord_edges: set[tuple[int, int]] = set()
+    for orb in orb_list:
+        chord_edges |= set(orb)
+
+    win_n = win_acc = 0
+    compound_on = False
+    compound_steps = 0
+    for _ in range(n_iter):
+        t *= gamma
+        if len(orb_list) < 2:
+            break
+        # draw up to nmoves 2-orbit swaps against a working copy of the
+        # orbit state; nmoves == 1 reproduces the classic proposal exactly
+        nmoves = moves_per_step if compound_on else 1
+        work_list, work_chords = orb_list, chord_edges
+        got = 0
+        for _m in range(nmoves):
+            if len(work_list) < 2:
+                break
+            mv = _draw_orbit_swap(rng, work_list, work_chords, ring_edges,
+                                  n, s, fold)
+            if mv is None:
+                continue
+            i1, i2, no1, no2, new_edges, remaining = mv
+            work_list = [o for idx, o in enumerate(work_list)
+                         if idx not in (i1, i2)] + [no1, no2]
+            work_chords = remaining | new_edges
+            got += 1
+        if got == 0:
+            continue
+        if got > 1:
+            compound_steps += 1
+        # edges in both states are removed-then-re-added: cancel them (set
+        # differences of orbit-closed sets stay orbit-closed)
+        removed = sorted(chord_edges - work_chords)
+        added = sorted(work_chords - chord_edges)
+        if ev is not None:
+            tok = ev.evaluate_swap(removed, added)
+            new_mpl = tok.mpl
+            new_d = float(tok.diam) if tok.diam < n else float("inf")
+        else:
+            # mutate adjacency in place on a copy restricted to changed entries
+            a2 = adj.copy()
+            for i, j in removed:
+                a2[i, j] = a2[j, i] = False
+            for i, j in added:
+                a2[i, j] = a2[j, i] = True
+            new_mpl, new_d = _mpl_fast(a2, n_sources=s)
+        win_n += 1
+        dm = new_mpl - cur_mpl
+        if dm < 0 or rng.random() < math.exp(-dm / max(t, 1e-12)):
+            orb_list, cur_mpl, cur_d = work_list, new_mpl, new_d
+            chord_edges = work_chords
+            if ev is not None:
+                ev.commit(tok)
+            else:
+                adj = a2
+            accepted += 1
+            win_acc += 1
+            if (cur_mpl, cur_d) < (best_mpl, best_d):
+                best_orbits, best_mpl, best_d = set(orb_list), cur_mpl, cur_d
+                history.append(best_mpl)
+                if best_mpl <= tgt + 1e-9:
+                    break
+        if moves_per_step > 1 and win_n >= _COMPOUND_WINDOW:
+            # the gate is adaptive both ways: compound moves arm when the
+            # single-move accept rate collapses and disarm if it recovers
+            compound_on = win_acc < _COMPOUND_RATE * win_n
+            win_n = win_acc = 0
+
+    edges = set(ring_edges)
+    for orb in best_orbits:
+        edges |= set(orb)
+    g = from_edges(n, edges, f"({n},{k})-Suboptimal")
+    return SearchResult(
+        graph=g,
+        mpl=best_mpl,
+        diameter=best_d,
+        mpl_lb=lb,
+        d_lb=metrics.diameter_lower_bound(n, k),
+        iterations=n_iter,
+        accepted=accepted,
+        history=history,
+        evals_delta=ev.n_delta if ev is not None else 0,
+        evals_full=ev.n_full if ev is not None else 0,
+        compound_steps=compound_steps,
+    )
 
 
 # --------------------------------------------------------------------------------
@@ -599,29 +891,26 @@ def large_search(
     polish_iters: int | None = None,
     device=None,
 ) -> SearchResult:
-    """Large-N tier: circulant warm start, then the device-priced replica
-    polish warm-started from it (when ``fold`` divides ``n``).
+    """Large-N tier: circulant warm start, then an orbit-level polish
+    warm-started from it (when ``fold`` divides ``n``).
 
     Returns whichever of the two stages found the lower (MPL, diameter).  A
     pinned offset set in ``KNOWN_CIRCULANT_OFFSETS`` skips the hillclimb
-    (seed 0 only).  The polish runs ``replicas`` lockstep annealing chains
-    (``replicas >= 2``; see ``_replica_polish``) for ``polish_iters``
-    iterations, or ``max(200, 2 * budget)``.
+    (seed 0 only); otherwise ``circulant_search`` runs ``budget`` (or 400)
+    iterations, pricing on the device at n >= 4096.  The polish runs
+    ``polish_iters`` iterations, or ``max(200, 2 * budget)``.  With
+    ``replicas=1`` (the default) it is ``symmetric_sa_search``, one chain
+    priced by ``metrics.SymmetricAPSP``; ``replicas >= 2`` runs the replica
+    polish (``_replica_polish``: ``exchange_every``, ``delta``,
+    ``proposal_batch`` and ``resync_every`` apply to it only).
 
-    ``device`` is where the polish prices: ``None`` is the CUDA device (and
+    ``device`` is where both stages price: ``None`` is the CUDA device (and
     raises without one), ``"cpu"`` runs the kernels' plain versions.  The
-    reference's ``engine=`` has no counterpart.  ``replicas=1``, which the
-    reference routes to ``symmetric_sa_search``, is not ported yet and
-    raises ``NotImplementedError``.  Errors in the polish propagate; the
-    reference instead returns the unpolished circulant on a RuntimeError or
-    ValueError.
+    reference's ``engine=`` has no counterpart.  Errors in the polish
+    propagate; the reference instead returns the unpolished circulant on a
+    RuntimeError or ValueError.
     """
     dev = resolve_device(device)
-    if polish and n % fold == 0 and replicas < 2:
-        raise NotImplementedError(
-            "large_search(replicas=1) polishes with symmetric_sa_search, "
-            "which the port does not have yet (ROADMAP Queue 1, item 7: "
-            "symmetric_sa_search and its row engine); pass replicas >= 2")
     pinned = KNOWN_CIRCULANT_OFFSETS.get((n, k)) if seed == 0 else None
     if pinned is not None:
         mpl_c, d_c = _circulant_profile(n, pinned)
@@ -632,14 +921,19 @@ def large_search(
             d_lb=metrics.diameter_lower_bound(n, k),
             iterations=0, accepted=0, history=[mpl_c], offsets=tuple(pinned))
     else:
-        res_c = circulant_search(n, k, seed=seed, n_iter=budget or 400)
+        res_c = circulant_search(n, k, seed=seed, n_iter=budget or 400, device=dev)
     if not polish or n % fold or res_c.offsets is None:
         return res_c
     n_polish = (polish_iters if polish_iters is not None
                 else max(200, (budget or 400) * 2))
     orbits = _circulant_orbits(n, n // fold, res_c.offsets)
-    res_s = _replica_polish(
-        n, k, seed=seed, n_iter=n_polish, fold=fold, start_orbits=orbits,
-        replicas=replicas, exchange_every=exchange_every, delta=delta,
-        proposal_batch=proposal_batch, resync_every=resync_every, device=dev)
+    if replicas > 1:
+        res_s = _replica_polish(
+            n, k, seed=seed, n_iter=n_polish, fold=fold, start_orbits=orbits,
+            replicas=replicas, exchange_every=exchange_every, delta=delta,
+            proposal_batch=proposal_batch, resync_every=resync_every, device=dev)
+    else:
+        res_s = symmetric_sa_search(
+            n, k, seed=seed, n_iter=n_polish, fold=fold, start_orbits=orbits,
+            device=dev)
     return res_s if (res_s.mpl, res_s.diameter) < (res_c.mpl, res_c.diameter) else res_c

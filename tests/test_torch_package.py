@@ -17,6 +17,9 @@ PORT = os.path.join(REPO, "src", "repro_torch")
 
 def _port_files():
     out = [os.path.join(REPO, "chip_smoke.py")]
+    bench = os.path.join(REPO, "benchmarks")
+    out += [os.path.join(bench, f) for f in os.listdir(bench)
+            if f.startswith("torch_") and f.endswith(".py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

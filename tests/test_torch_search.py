@@ -43,8 +43,16 @@ def test_large_search_matches_reference(kw):
 
 
 def test_large_search_replicas_1_not_ported():
-    with pytest.raises(NotImplementedError, match="symmetric_sa_search"):
-        search.large_search(64, 4, budget=10, device="cpu")
+    """``replicas=1`` (the default), once refused, now polishes with
+    ``symmetric_sa_search`` as the reference does: every field equal, on an
+    unpinned (64, 4), where the hillclimb runs, and on the pinned (256, 6)."""
+    for kw in (dict(n=64, k=4, budget=10), dict(n=256, k=6, polish_iters=12)):
+        want = ref_search.large_search(seed=0, fold=4, engine="bitset", **kw)
+        got = search.large_search(seed=0, fold=4, device="cpu", **kw)
+        assert got.graph.edges == want.graph.edges
+        for f in FIELDS + ("compound_steps",):
+            assert getattr(got, f) == getattr(want, f), f
+        assert got.evals_delta + got.evals_full > 0  # the polish won
     # no polish requested: the circulant stage alone runs
     got = search.large_search(64, 4, budget=10, polish=False, device="cpu")
     want = ref_search.large_search(64, 4, budget=10, polish=False)
