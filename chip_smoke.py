@@ -57,31 +57,42 @@ Phases, in order; any failure raises and exits non-zero:
     rechecked;
 11. the wgmma fragment layouts of ``flash_attention_kernel`` (bf16), then
     the kernel and ``flash_attention_fp32_kernel`` against their plain
-   version at the serving shape (b=4, h=kv=32, s=1024, hd=80, bf16,
-   causal), at a GQA, ``q_offset`` and ragged case (h=32, kv=8, sq=200,
-   skv=328) in bf16 and fp32, at head dims 16, 64, 112 and 128 in both
-   dtypes, non-causal, on a ragged 19-row tile and with keys ending inside
-   a tile, with ``scaled_dot_product_attention`` timed beside it as a
-   yardstick;
+    version at the serving shapes (zamba2: b=4, h=kv=32, s=1024, hd=80;
+    qwen3-32b: b=4, h=64, kv=8, s=1024, hd=128; bf16, causal), at a GQA,
+    ``q_offset`` and ragged case (h=32, kv=8, sq=200, skv=328) in bf16 and
+    fp32, at head dims 16, 64, 112 and 128 in both dtypes, non-causal, on a
+    ragged 19-row tile, with keys ending inside a tile, and at hd 128 with
+    GQA 64/8 in fp32; both serving shapes timed, with
+    ``scaled_dot_product_attention`` beside the kernel as a yardstick;
 12. the wgmma fragment layouts of ``ssd_intra_chunk_kernel`` (bf16), then
-   the kernel and ``ssd_intra_chunk_fp32_kernel`` against their plain
-   version at the serving shape (b*h=320, s=1024, p=n=64, chunk 256, bf16
-   x/B/C) and at eight smaller shapes (p 8..128, n 16..128, chunks
-   8..512; bf16 down to the domain's edge, chunk 64 and p = n = 16), and a
-   bf16 chunk outside the domain refused;
+    the kernel and ``ssd_intra_chunk_fp32_kernel`` against their plain
+    version at the serving shapes (b*h=320, s=1024, p=64, chunk 256, bf16
+    x/B/C; n=64 for zamba2, n=128 for mamba2-2.7b: one stage of shared
+    memory) and at eight smaller shapes (p 8..128, n 16..128, chunks
+    8..512; bf16 down to the domain's edge, chunk 64 and p = n = 16), and
+    a bf16 chunk outside the domain refused; both serving shapes timed;
 13. the serving path: ``ServingEngine`` on zamba2-2.7b at full width and
-   full depth (54 Mamba2 layers, 9 applications of the shared attention
-   block), bf16, seeded weights, 4 slots, 8 requests of 1024-token prompts
-   in 2 waves, 32 greedy tokens each; both model kernels' launches counted
-   (9 and 54 per prefill), TTFT, decode latency, throughput, peak memory,
-   and a ``torch.profiler`` readout of one prefill, with each hand-written
-   kernel's device time and launches;
+    full depth (54 Mamba2 layers, 9 applications of the shared attention
+    block), bf16, seeded weights, 4 slots, 8 requests of 1024-token prompts
+    in 2 waves, 32 greedy tokens each; both model kernels' launches counted
+    (9 and 54 per prefill), TTFT, decode latency, throughput, peak memory
+    (checked against the weights and caches), and a ``torch.profiler``
+    readout of one prefill, with each hand-written kernel's device time and
+    launches;
 14. zamba2-2.7b at full width, depth 6 (one stage), float32, on the card
     and on the CPU: prefill and decode logits within a stated tolerance and
-    the same greedy tokens.
+    the same greedy tokens;
+15. phase 13 for qwen3-32b (dense; the reference launcher's default) at
+    full width and depth (64 layers, 65.5 GB of bf16 weights, after the
+    earlier phases' memory is freed): 64 attention launches per prefill;
+16. phase 14 for qwen3-32b at depth 2;
+17. phase 13 for mamba2-2.7b (ssm) at full width and depth: 64 SSD
+    launches per prefill;
+18. phase 14 for mamba2-2.7b at depth 4.
 
 It prints one ``{"kernels": [...]}`` JSON line (per kernel: launches on the
-main paths (the BFS kernels: phases 5 and 7; the model kernels: phase 13),
+main paths (the BFS kernels: phases 5 and 7; the model kernels: phases 13,
+15 and 17),
 the largest difference from the plain version, kernel, plain and library
 times from CUDA events around a run of calls, and the least time the card
 could take), then the
@@ -1027,12 +1038,13 @@ def _attn_pairs(sq: int, skv: int, q_offset: int, causal: bool) -> int:
     return sum(min(skv, q_offset + i + 1) for i in range(sq))
 
 
-def phase_flash(b: int = 4, h: int = 32, s: int = 1024, hd: int = 80) -> dict:
+def phase_flash(serving=((4, 32, 32, 1024, 80), (4, 64, 8, 1024, 128))) -> dict:
     """flash_attention_kernel (bf16) and flash_attention_fp32_kernel against
     their plain version on the card, after a check of the wgmma fragment
-    layouts the bf16 kernel rests on."""
+    layouts the bf16 kernel rests on; then timed at each serving prefill's
+    shape (b, h, kv, s, hd): zamba2-2.7b's and qwen3-32b's.  The kernels
+    line takes the last (the dense prefill launches it most)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
@@ -1070,25 +1082,28 @@ def phase_flash(b: int = 4, h: int = 32, s: int = 1024, hd: int = 80) -> dict:
     tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
     errs = []
     f32, b16 = torch.float32, torch.bfloat16
-    # the serving shape; GQA with q_offset and ragged lengths; then the head
-    # dims of the reference's kernel cases (64, 112, 128) and of the reduced
-    # config (16), in fp32 and bf16, so every head-dim template the model
-    # can reach is run; non-causal, a ragged 19-row tile and a q_offset case
-    # whose keys end inside a 128-key tile
-    cases = [(b, h, h, s, s, hd, 0, b16, True),
-             (2, h, 8, 200, 328, hd, 128, b16, True),
-             (2, h, 8, 200, 328, hd, 128, f32, True),
-             (1, h, 8, 200, 328, hd, 0, f32, False),
-             (2, 4, 2, 128, 128, 64, 0, f32, True),
-             (2, 6, 2, 128, 256, 112, 128, f32, False),
-             (1, 8, 2, 128, 384, 128, 256, b16, True),
-             (2, 4, 2, 19, 19, 16, 0, f32, True),
-             (2, 4, 2, 128, 128, 16, 0, b16, True),
-             (2, 4, 2, 128, 128, 64, 0, b16, True),
-             (2, 6, 2, 128, 256, 112, 128, b16, False),
-             (1, h, 8, 200, 328, hd, 0, b16, False),
-             (2, 4, 2, 19, 19, hd, 0, b16, True),
-             (1, 4, 4, 77, 205, hd, 128, b16, True)]
+    # the serving shapes; GQA with q_offset and ragged lengths; then the
+    # head dims of the reference's kernel cases (64, 112, 128) and of the
+    # reduced config (16), in fp32 and bf16, so every head-dim template the
+    # model can reach is run; non-causal, a ragged 19-row tile and a
+    # q_offset case whose keys end inside a 128-key tile; hd 128 with the
+    # dense family's GQA 64/8 in fp32 (the card-vs-CPU phase's kernel)
+    cases = [(b, h, kv, s, s, hd, 0, b16, True) for b, h, kv, s, hd in serving]
+    h, hd = serving[0][1], serving[0][4]
+    cases += [(2, h, 8, 200, 328, hd, 128, b16, True),
+              (2, h, 8, 200, 328, hd, 128, f32, True),
+              (1, h, 8, 200, 328, hd, 0, f32, False),
+              (2, 4, 2, 128, 128, 64, 0, f32, True),
+              (2, 6, 2, 128, 256, 112, 128, f32, False),
+              (1, 8, 2, 128, 384, 128, 256, b16, True),
+              (2, 4, 2, 19, 19, 16, 0, f32, True),
+              (2, 4, 2, 128, 128, 16, 0, b16, True),
+              (2, 4, 2, 128, 128, 64, 0, b16, True),
+              (2, 6, 2, 128, 256, 112, 128, b16, False),
+              (1, h, 8, 200, 328, hd, 0, b16, False),
+              (2, 4, 2, 19, 19, hd, 0, b16, True),
+              (1, 4, 4, 77, 205, hd, 128, b16, True),
+              (1, 64, 8, 256, 256, 128, 0, f32, True)]
     for b_, h_, kv_, sq, skv, hd_, off, dtype, causal in cases:
         q, k, v = qkv(b_, h_, kv_, sq, skv, hd_, dtype)
         got = fa.flash_attention_fwd(q, k, v, causal=causal, q_offset=off)
@@ -1101,31 +1116,48 @@ def phase_flash(b: int = 4, h: int = 32, s: int = 1024, hd: int = 80) -> dict:
         errs.append(err)
         log(f"[11] flash b={b_} h={h_} kv={kv_} sq={sq} skv={skv} hd={hd_} q_offset={off} "
             f"{str(dtype)[6:]} causal={causal}: max abs err {err:.3g} (tol {tol[dtype]})")
-    # timed on the main path's layout: (b, h, s, hd) views of (b, s, h, hd)
-    q, k, v = (rnd(b, s, h, hd).to(torch.bfloat16).transpose(1, 2) for _ in range(3))
-    ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), reps=3, n=1)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                            scale=hd ** -0.5))
-    flops = 4 * b * h * _attn_pairs(s, s, 0, True) * hd  # q k^T and p v
-    nbytes = 4 * b * h * s * hd * 2  # q, k, v read, o written, bf16
-    bms, by, terms = bound(nbytes, [(flops, BF16_FLOP_PER_S)])
-    log(f"    serving shape: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-        f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
-        f"({flops / lib_ms / 1e9:.1f} TFLOP/s), bound {bms:.4f} ms ({terms}; "
-        f"{flops / 1e9:.2f} GFLOP at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16, "
-        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+        del q, k, v, got, want
+    for b, h, kv, s, hd in serving:
+        row = flash_timed(rnd, b, h, kv, s, hd)
     return {"name": "flash_attention_kernel", "route": "cuda", "source": FLASH_SOURCE,
             "replaces": "src/repro/kernels/flash_attention.py:38", "max_abs_err": max(errs),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms}
+            **row}
 
 
-def phase_ssd(bh: int = 320, s: int = 1024, p: int = 64, n: int = 64,
-              chunk: int = 256) -> dict:
+def flash_timed(rnd, b: int, h: int, kv: int, s: int, hd: int) -> dict:
+    """The bf16 kernel, its plain version and SDPA (GQA by ``enable_gqa``)
+    at one serving prefill's shape, on the main path's layout: (b, h, s, hd)
+    views of (b, s, h, hd) tensors; the bound from its causal FLOPs and
+    bytes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q = rnd(b, s, h, hd).to(torch.bfloat16).transpose(1, 2)
+    k, v = (rnd(b, s, kv, hd).to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+    ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), reps=3, n=1)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=hd ** -0.5, enable_gqa=kv != h))
+    flops = 4 * b * h * _attn_pairs(s, s, 0, True) * hd  # q k^T and p v
+    nbytes = 2 * b * s * hd * (2 * h + 2 * kv)  # q, k, v read, o written, bf16
+    bms, by, terms = bound(nbytes, [(flops, BF16_FLOP_PER_S)])
+    log(f"    serving shape b={b} h={h} kv={kv} s={s} hd={hd}: kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+        f"scaled_dot_product_attention {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s), "
+        f"bound {bms:.4f} ms ({terms}; {flops / 1e9:.2f} GFLOP at "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16, {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+
+def phase_ssd(serving=((320, 1024, 64, 64, 256), (320, 1024, 64, 128, 256))) -> dict:
     """ssd_intra_chunk_kernel (bf16) and ssd_intra_chunk_fp32_kernel against
     their plain version on the card, after a check of the wgmma fragment
-    layouts the bf16 kernel rests on."""
+    layouts the bf16 kernel rests on; then timed at each serving prefill's
+    shape (b*h, s, p, n, chunk): zamba2-2.7b's (n = 64) and mamba2-2.7b's
+    (n = 128, one stage of shared memory).  The kernels line takes the last
+    (the SSM prefill launches it most)."""
     import torch
 
     from repro_torch.kernels import ssd_scan as ssd
@@ -1168,16 +1200,17 @@ def phase_ssd(bh: int = 320, s: int = 1024, p: int = 64, n: int = 64,
         A = -torch.exp(0.5 * rnd(bh_, 1))
         return x, dt, A, B, C
 
-    # the serving shape; then the reference's kernel cases (p 8..64, n up to
+    # the serving shapes; then the reference's kernel cases (p 8..64, n up to
     # 128, chunks of 16..256, so ragged 64-row tiles), the reduced config
     # (p 8, n 16, chunk 8), p = 128 (the largest column template), the bf16
     # kernel's smallest chunk, p and n, and a chunk of 512 (one stage of
     # shared memory, two TMA boxes per slab)
-    cases = [(bh, s, p, n, chunk, torch.bfloat16), (8, 64, 8, 16, 16, torch.float32),
-             (2, 96, 64, 128, 32, torch.float32), (8, 128, 8, 16, 32, torch.float32),
-             (2, 256, 16, 32, 256, torch.float32), (8, 16, 8, 16, 8, torch.float32),
-             (2, 256, 128, 64, 128, torch.bfloat16), (4, 192, 16, 16, 64, torch.bfloat16),
-             (2, 1024, 64, 64, 512, torch.bfloat16)]
+    cases = [(*shape, torch.bfloat16) for shape in serving]
+    cases += [(8, 64, 8, 16, 16, torch.float32),
+              (2, 96, 64, 128, 32, torch.float32), (8, 128, 8, 16, 32, torch.float32),
+              (2, 256, 16, 32, 256, torch.float32), (8, 16, 8, 16, 8, torch.float32),
+              (2, 256, 128, 64, 128, torch.bfloat16), (4, 192, 16, 16, 64, torch.bfloat16),
+              (2, 1024, 64, 64, 512, torch.bfloat16)]
     errs = []
     for bh_, s_, p_, n_, chunk_, dtype in cases:
         args = inputs(bh_, s_, p_, n_, dtype)
@@ -1207,7 +1240,21 @@ def phase_ssd(bh: int = 320, s: int = 1024, p: int = 64, n: int = 64,
         log(f"    bf16 chunk 32 refused: {e}")
     else:
         raise RuntimeError("check failed: a bf16 chunk of 32 was not refused")
-    x, dt, A, B, C = inputs(bh, s, p, n, torch.bfloat16)
+    for bh, s, p, n, chunk in serving:
+        row = ssd_timed(inputs(bh, s, p, n, torch.bfloat16), chunk)
+    return {"name": "ssd_intra_chunk_kernel", "route": "cuda", "source": SSD_SOURCE,
+            "replaces": "src/repro/kernels/ssd_scan.py:32", "max_abs_err": max(errs),
+            **row, "library_ms": None}
+
+
+def ssd_timed(args, chunk: int) -> dict:
+    """The bf16 kernel and its plain version at one serving prefill's shape;
+    the bound from its causal products and bytes."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    x, dt, A, B, C = args
+    bh, s, p = x.shape
+    n = B.shape[-1]
     ms = cuda_ms(lambda: ssd.ssd_intra_chunk(x, dt, A, B, C, chunk))
     plain_ms = cuda_ms(lambda: ssd.ssd_intra_chunk_plain(x, dt, A, B, C, chunk), reps=3,
                        n=1)
@@ -1222,16 +1269,15 @@ def phase_ssd(bh: int = 320, s: int = 1024, p: int = 64, n: int = 64,
               + bh * s * p * 4 + bh * nc * p * n * 4)  # y, states
     bms, by, terms = bound(nbytes, ops)
     fp32_terms = bound(nbytes, [(cb, BF16_FLOP_PER_S), (weighted, FP32_FLOP_PER_S)])[2]
-    log(f"    serving shape: kernel {ms:.4f} ms ({(cb + weighted) / ms / 1e9:.1f} TFLOP/s of "
-        f"the reference's {(cb + weighted) / 1e9:.2f} GFLOP), plain {plain_ms:.3f} ms, bound "
-        f"{bms:.4f} ms ({terms}; {(cb + 2 * weighted) / 1e9:.2f} GFLOP at "
-        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16, {nbytes / 1e6:.1f} MB at "
-        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; with the weighted products at "
-        f"{FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s fp32, as the first design ran them: {fp32_terms})")
-    return {"name": "ssd_intra_chunk_kernel", "route": "cuda", "source": SSD_SOURCE,
-            "replaces": "src/repro/kernels/ssd_scan.py:32", "max_abs_err": max(errs),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None}
+    log(f"    serving shape bh={bh} s={s} p={p} n={n} chunk={chunk} "
+        f"({ssd.bf16_smem_bytes(chunk, p, n)} B of shared memory a stage): kernel {ms:.4f} ms "
+        f"({(cb + weighted) / ms / 1e9:.1f} TFLOP/s of the reference's "
+        f"{(cb + weighted) / 1e9:.2f} GFLOP), plain {plain_ms:.3f} ms, bound {bms:.4f} ms "
+        f"({terms}; {(cb + 2 * weighted) / 1e9:.2f} GFLOP at {BF16_FLOP_PER_S / 1e12:.0f} "
+        f"TFLOP/s bf16, {nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; with the "
+        f"weighted products at {FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s fp32, as the first design "
+        f"ran them: {fp32_terms})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
 
 
 def _reset_model_counts() -> None:
@@ -1249,23 +1295,57 @@ def _model_counts() -> dict:
             "ssd_intra_chunk_kernel": ssd.ssd_intra_chunk.launches}
 
 
-def phase_serve(slots: int = 4, requests: int = 8, prompt_len: int = 1024,
-                max_new: int = 32, max_seq: int = 1088) -> dict:
-    """The serving path of zamba2-2.7b at full width and depth, bf16."""
+def launches_per_prefill(cfg) -> dict:
+    """Model kernel launches one prefill makes: an attention per dense layer
+    or per application of the hybrid's shared block, an SSD per Mamba2
+    layer."""
+    attn = {"dense": cfg.n_layers, "ssm": 0,
+            "hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1)}[cfg.family]
+    return {"flash_attention_kernel": attn,
+            "ssd_intra_chunk_kernel": 0 if cfg.family == "dense" else cfg.n_layers}
+
+
+def _tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if hasattr(t, "numel"))
+
+
+def free_device() -> None:
+    """Drop what earlier phases left in the caching allocator, so a model
+    that needs most of the card finds it."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve(arch: str, phase: int, slots: int = 4, requests: int = 8,
+                prompt_len: int = 1024, max_new: int = 32, max_seq: int = 1088,
+                activations_gib: float = 6.0) -> dict:
+    """The serving path of ``arch`` at full width and depth, bf16: the
+    kernels' launches, TTFT, decode latency, throughput and peak memory,
+    which must stay within ``activations_gib`` of the weights and the
+    caches; then a profile of one prefill and of 4 decode steps."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve import DecodeParams, Request, ServingEngine
 
-    cfg = get_config("zamba2-2.7b")
+    free_device()
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg)  # the CUDA device: no device argument
     params = model.init(0)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in params.parameters())
-    log(f"[13] zamba2-2.7b: {n_params / 1e9:.3f} B parameters ({cfg.dtype}) made on "
-        f"{model.device} in {time.perf_counter() - t0:.2f} s")
+    weights = _tensor_bytes(params.parameters())
+    log(f"[{phase}] {arch}: {n_params / 1e9:.3f} B parameters ({cfg.dtype}, "
+        f"{weights / 2**30:.2f} GiB) made on {model.device} in "
+        f"{time.perf_counter() - t0:.2f} s; peak while drawing them "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=prompt_len).astype(np.int32)
                for _ in range(requests)]
@@ -1300,11 +1380,11 @@ def phase_serve(slots: int = 4, requests: int = 8, prompt_len: int = 1024,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _model_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = torch.cuda.max_memory_allocated()
+    caches = _tensor_bytes(eng.cache.values())
     st = eng.stats(done)
     waves = -(-requests // slots)
-    want = {"flash_attention_kernel": waves * cfg.n_layers // cfg.shared_attn_every,
-            "ssd_intra_chunk_kernel": waves * cfg.n_layers}
+    want = {k: waves * v for k, v in launches_per_prefill(cfg).items()}
     check(launches == want, f"model kernel launches {launches}, expected {want}")
     check(len(done) == requests and all(len(r.out_tokens) == max_new for r in done),
           "not every request got its tokens")
@@ -1316,10 +1396,16 @@ def phase_serve(slots: int = 4, requests: int = 8, prompt_len: int = 1024,
         f"tokens in {wall:.3f} s: TTFT mean {st['ttft_mean_s'] * 1e3:.1f} ms, latency mean "
         f"{st['latency_mean_s'] * 1e3:.1f} ms, decode {np.mean(decode_ms):.2f} ms/token "
         f"per lane ({slots} lanes), throughput {st['throughput_tok_s']:.2f} tok/s "
-        f"(generated tokens / span); peak device memory {peak:.2f} GiB; launches {launches}")
+        f"(generated tokens / span); peak device memory {peak / 2**30:.2f} GiB (weights "
+        f"{weights / 2**30:.2f} GiB, a wave's caches {caches / 2**30:.2f} GiB); launches "
+        f"{launches}")
+    check(peak - weights - caches <= activations_gib * 2**30,
+          f"peak device memory {peak / 2**30:.2f} GiB exceeds the weights and caches by more "
+          f"than {activations_gib} GiB")
     log(f"    first tokens: {[r.out_tokens[:4] for r in done[:2]]}")
 
     toks = np.stack(prompts[:slots])
+    eng.cache = None
     profile_run(lambda: model.prefill(params, {"tokens": toks}, max_seq),
                 f"one prefill ({slots} x {prompt_len} tokens)", top=10)
     _, cache = model.prefill(params, {"tokens": toks}, max_seq)
@@ -1329,9 +1415,12 @@ def phase_serve(slots: int = 4, requests: int = 8, prompt_len: int = 1024,
     return launches
 
 
-def phase_model_card_vs_cpu(depth: int = 6, prompt_len: int = 128, requests: int = 2,
-                            max_new: int = 8) -> None:
-    """zamba2-2.7b at full width, one stage, float32: card against CPU."""
+def phase_model_card_vs_cpu(arch: str, phase: int, depth: int, prompt_len: int = 128,
+                            requests: int = 2, max_new: int = 8) -> None:
+    """``arch`` at full width and depth ``depth``, float32, on the card and on
+    the CPU with the same weights: prefill and decode logits within a stated
+    tolerance, and the same greedy tokens."""
+    import copy
     import dataclasses
 
     import torch
@@ -1339,21 +1428,23 @@ def phase_model_card_vs_cpu(depth: int = 6, prompt_len: int = 128, requests: int
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
+    free_device()
     torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 products on the card
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("zamba2-2.7b"), n_layers=depth, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth, dtype="float32")
     cpu = build_model(cfg, device="cpu")
     card = build_model(cfg, device=DEV)
-    p_cpu = cpu.init(0)
-    p_card = card.init(1)  # other numbers, then the CPU's weights copied in
-    p_card.load_state_dict(p_cpu.state_dict())
+    p_card = card.init(0)
+    p_cpu = copy.deepcopy(p_card).to("cpu")  # the same weights, drawn once on the card
     toks = np.random.default_rng(1).integers(0, cfg.vocab, size=(requests, prompt_len))
     max_seq = prompt_len + max_new
-    # prefill logits: fp32 products summed in other orders; decode steps: the
-    # conv state is cached in bf16 after the prefill (as in the reference),
-    # so a value near a rounding boundary may round one bf16 ulp (2^-8
-    # relative) apart on the two devices and feed every later step
-    tol_prefill, tol_decode = 2e-3, 1e-2
+    # prefill logits: fp32 products summed in other orders; decode steps of
+    # a model with a conv state: that state is cached in bf16 after the
+    # prefill (as in the reference), so a value near a rounding boundary may
+    # round one bf16 ulp (2^-8 relative) apart on the two devices and feed
+    # every later step; a dense model's KV cache stays fp32
+    tol_prefill = 2e-3
+    tol_decode = 1e-2 if cfg.ssm is not None else tol_prefill
     worst = []
     t_cpu = t_card = 0.0
     outs = {}
@@ -1385,7 +1476,7 @@ def phase_model_card_vs_cpu(depth: int = 6, prompt_len: int = 128, requests: int
         worst.append(err)
     same = all(torch.equal(a, c) for a, c in zip(outs["cpu"][1], outs["card"][1]))
     check(same, "card and CPU greedy tokens differ")
-    log(f"[14] zamba2-2.7b full width, depth {depth}, float32, {requests} x {prompt_len}-token "
+    log(f"[{phase}] {arch} full width, depth {depth}, float32, {requests} x {prompt_len}-token "
         f"prompts, {max_new} greedy tokens: card == CPU tokens; logits max abs diff per step "
         f"{[float(f'{e:.3g}') for e in worst]} (atol = rtol = {tol_prefill} for the "
         f"prefill, {tol_decode} for decode); cpu {t_cpu:.2f} s, card {t_card:.2f} s")
@@ -1403,6 +1494,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     t_start = time.perf_counter()
+
+    def elapsed(phases: str) -> None:
+        log(f"    phases {phases} done, {time.perf_counter() - t_start:.1f} s since the start")
+
     smi = phase_device()
     phase_build()
     kernels = [phase_sweep(), phase_patch()]
@@ -1416,9 +1511,22 @@ def main() -> int:
     phase_symmetric_pinned()
     phase_symmetric_card_vs_cpu()
     phase_circulant()
+    elapsed("1-10")
     kernels += [phase_flash(), phase_ssd()]
-    launches.update(phase_serve())
-    phase_model_card_vs_cpu()
+    elapsed("11-12")
+    # the model kernels' launches on the three serving paths
+    served = [phase_serve("zamba2-2.7b", 13)]
+    phase_model_card_vs_cpu("zamba2-2.7b", 14, depth=6)
+    elapsed("13-14")
+    served.append(phase_serve("qwen3-32b", 15))
+    phase_model_card_vs_cpu("qwen3-32b", 16, depth=2)
+    elapsed("15-16")
+    served.append(phase_serve("mamba2-2.7b", 17))
+    phase_model_card_vs_cpu("mamba2-2.7b", 18, depth=4)
+    elapsed("17-18")
+    log(f"    launches on the serving paths: zamba2 {served[0]}, qwen3 {served[1]}, "
+        f"mamba2 {served[2]}")
+    launches.update({name: sum(run[name] for run in served) for name in served[0]})
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -109,8 +109,15 @@ ARCH_IDS = [
 ]
 
 # architectures whose model family the port runs, with their config modules
-_PORTED = {"zamba2-2.7b": "zamba2_2_7b"}
-PORTED_FAMILIES = ("hybrid",)
+_PORTED = {
+    "qwen3-32b": "qwen3_32b",
+    "minitron-8b": "minitron_8b",
+    "phi3-medium-14b": "phi3_medium_14b",
+    "codeqwen1.5-7b": "codeqwen1_5_7b",
+    "mamba2-2.7b": "mamba2_2_7b",
+    "zamba2-2.7b": "zamba2_2_7b",
+}
+PORTED_FAMILIES = ("hybrid", "dense", "ssm")
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,0 +1,19 @@
+"""codeqwen1.5-7b: dense 32L d_model=4096 32H (MHA kv=32) d_ff=13440
+vocab=92416. qwen1.5 arch. [hf:Qwen/CodeQwen1.5-7B; hf]"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="codeqwen1.5-7b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=32,
+    d_ff=13440,
+    vocab=92416,
+    head_dim=128,
+    rope_theta=1e6,
+    optimizer="adamw",
+    remat="dots",
+    source="hf:Qwen/CodeQwen1.5-7B; hf",
+)

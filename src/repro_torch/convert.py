@@ -29,31 +29,42 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+# the subtree of each ported family's param tree whose leaves carry a
+# leading layer axis
+_STACKED = {"dense": "blocks", "ssm": "mamba", "hybrid": "mamba"}
+
+
+def _flat(prefix: str, tree, out: dict) -> dict:
+    """The leaves of a nested dict, keyed by their dotted paths."""
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            _flat(f"{prefix}.{key}" if prefix else key, sub, out)
+    else:
+        out[prefix] = tree
+    return out
+
+
 def params_from_reference(cfg, params: dict) -> dict:
     """The port's state dict for the reference's param tree, given as numpy
-    arrays (``jax.tree.map(np.asarray, params)``).  Stacked per-layer
-    weights (leading layer axis) are unstacked into ``mamba.<i>.<name>``;
-    the rest keeps the tree's path, joined with dots.  Load it with
-    ``model.init(...).load_state_dict(sd)`` (the family must be ported:
-    ``hybrid``)."""
-    if cfg.family != "hybrid":
+    arrays (``jax.tree.map(np.asarray, params)``).  The family's stacked
+    per-layer subtree (leading layer axis: ``blocks`` for dense, ``mamba``
+    for ssm and hybrid) is unstacked into ``<subtree>.<i>.<path>``
+    (``blocks.3.attn.wq``, ``mamba.3.in_proj``); the rest keeps the tree's
+    path, joined with dots.  Load it with ``model.init(...).load_state_dict(sd)``
+    (the family must be ported: dense, ssm or hybrid)."""
+    if cfg.family not in _STACKED or cfg.moe is not None or cfg.mrope:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet; see ROADMAP.md, Queue 1")
+            f"{cfg.name}: model family {cfg.family!r} (moe={cfg.moe is not None}, "
+            f"mrope={cfg.mrope}) is not ported yet; see ROADMAP.md, Queue 1")
+    stacked = _STACKED[cfg.family]
     sd: dict[str, torch.Tensor] = {}
-    for name, a in params["mamba"].items():
+    for path, a in _flat("", params[stacked], {}).items():
         if a.shape[0] != cfg.n_layers:
-            raise ValueError(f"mamba.{name} has {a.shape[0]} layers, expected {cfg.n_layers}")
+            raise ValueError(f"{stacked}.{path} has {a.shape[0]} layers, expected {cfg.n_layers}")
         for i in range(cfg.n_layers):
-            sd[f"mamba.{i}.{name}"] = _tensor(a[i])
-
-    def flat(prefix: str, tree) -> None:
-        if isinstance(tree, dict):
-            for key, sub in tree.items():
-                flat(f"{prefix}.{key}" if prefix else key, sub)
-        else:
-            sd[prefix] = _tensor(tree)
-
-    flat("", {k: v for k, v in params.items() if k != "mamba"})
+            sd[f"{stacked}.{i}.{path}"] = _tensor(a[i])
+    rest = _flat("", {k: v for k, v in params.items() if k != stacked}, {})
+    sd.update((path, _tensor(a)) for path, a in rest.items())
     return sd
 
 

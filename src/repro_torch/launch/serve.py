@@ -4,8 +4,10 @@ Runs the continuous-batching engine on synthetic prompts (drawn from
 ``numpy.random.default_rng(seed)``) and seeded random weights, and reports
 TTFT / latency / throughput.  ``--full`` selects the real config;
 ``--device cpu`` runs the kernels' plain versions (the default is the CUDA
-device, and the launcher fails without one).  Only the families the port
-runs are accepted (``zamba2-2.7b``, the default).
+device, and the launcher fails without one).  The default architecture is
+the reference launcher's, ``qwen3-32b`` (dense); the port also serves the
+other dense configs, ``mamba2-2.7b`` (ssm) and ``zamba2-2.7b`` (hybrid).
+Any other family raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from ..serve import DecodeParams, Request, ServingEngine
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--arch", choices=ARCH_IDS, default="zamba2-2.7b")
+    p.add_argument("--arch", choices=ARCH_IDS, default="qwen3-32b")
     p.add_argument("--full", action="store_true")
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--slots", type=int, default=4)

@@ -47,7 +47,7 @@ class Initializer:
         std = stddev if stddev is not None else 1.0 / math.sqrt(fan_in)
         x = torch.randn(tuple(shape), generator=self.gen, device=self.device,
                         dtype=torch.float32)
-        return (x * std).to(self.dtype)
+        return x.mul_(std).to(self.dtype)  # in place: one float32 temporary, not two
 
     def zeros(self, shape: Sequence[int]) -> torch.Tensor:
         return torch.zeros(tuple(shape), dtype=self.dtype, device=self.device)

@@ -17,12 +17,12 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from .common import DTYPES, Initializer, ParamModule, rms_norm, swiglu
+from .common import DTYPES, Initializer, ParamModule, rms_norm
 from .ssm import MambaBlock, init_ssm_state, mamba_block, mamba_decode_step
-from .transformer import _attn_params, _mlp_params, attn_block, attn_block_decode, padded_dims
+from .transformer import (DenseBlock, _positions_for, dense_layer, dense_layer_decode,
+                          padded_dims)
 
 __all__ = [
-    "SharedBlock",
     "HybridLM",
     "init_hybrid",
     "hybrid_forward",
@@ -40,50 +40,27 @@ def _stages(cfg: ArchConfig) -> tuple[int, int]:
     return cfg.n_layers // period, period
 
 
-class SharedBlock(ParamModule):
-    """The shared attention + SwiGLU block: ``attn`` (wq, wk, wv, wo), ``mlp``
-    (w1, w3, w2), ``ln1`` and ``ln2``."""
-
-    def __init__(self, attn: dict, mlp: dict, ln1: torch.Tensor, ln2: torch.Tensor):
-        super().__init__(ln1=ln1, ln2=ln2)
-        self.attn = ParamModule(**attn)
-        self.mlp = ParamModule(**mlp)
-
-
 class HybridLM(ParamModule):
     """The hybrid model's weights: ``embed`` (vocab_padded, d), ``mamba`` (a
-    ModuleList of the n_layers Mamba blocks), ``shared``, ``final_norm`` and
+    ModuleList of the n_layers Mamba blocks), ``shared`` (the attention +
+    SwiGLU block, a ``transformer.DenseBlock``), ``final_norm`` and
     ``head`` (d, vocab_padded).  Its state dict names follow the
     reference's tree with the layer axis unstacked (``mamba.<i>.in_proj``)."""
 
-    def __init__(self, embed, mamba: list, shared: SharedBlock, final_norm, head):
+    def __init__(self, embed, mamba: list, shared: DenseBlock, final_norm, head):
         super().__init__(embed=embed, final_norm=final_norm, head=head)
         self.mamba = nn.ModuleList(mamba)
         self.shared = shared
 
 
 def init_hybrid(cfg: ArchConfig, seed: int, device) -> HybridLM:
-    hp, kvp, vp = padded_dims(cfg)
-    hd = cfg.resolved_head_dim
-    d, f = cfg.d_model, cfg.d_ff
+    _, _, vp = padded_dims(cfg)
+    d = cfg.d_model
     ini = Initializer(seed, DTYPES[cfg.dtype], device)
     embed = ini.normal((vp, d), stddev=1.0)
     mamba = [MambaBlock.init(ini, cfg) for _ in range(cfg.n_layers)]
-    shared = SharedBlock(_attn_params(ini, d, hp, kvp, hd, cfg.qk_norm),
-                         _mlp_params(ini, d, f), ini.ones((d,)), ini.ones((d,)))
+    shared = DenseBlock.init(ini, cfg)
     return HybridLM(embed, mamba, shared, ini.ones((d,)), ini.normal((d, vp)))
-
-
-def _shared_block(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
-    h, kv = attn_block(p["attn"], rms_norm(x, p["ln1"]), positions, cfg)
-    x = x + h
-    mlp = p["mlp"]
-    x = x + swiglu(rms_norm(x, p["ln2"]), mlp["w1"], mlp["w3"], mlp["w2"])
-    return x, kv
-
-
-def _positions(b: int, seq: int, device) -> torch.Tensor:
-    return torch.arange(seq, dtype=torch.int32, device=device)[None].expand(b, seq)
 
 
 def hybrid_forward(params: HybridLM, tokens: torch.Tensor, cfg: ArchConfig,
@@ -93,14 +70,14 @@ def hybrid_forward(params: HybridLM, tokens: torch.Tensor, cfg: ArchConfig,
     n_stage, period = _stages(cfg)
     x = params["embed"][tokens]
     b, seq = x.shape[:2]
-    positions = _positions(b, seq, x.device)
+    positions = _positions_for(b, seq, x.device)
     states, kvs = [], []
     for stage in range(n_stage):
         for j in range(period):
             x, st, cv = mamba_block(params["mamba"][stage * period + j], x, cfg)
             if collect:
                 states.append((st, cv))
-        x, kv = _shared_block(params["shared"], x, positions, cfg)
+        x, kv = dense_layer(params["shared"], x, positions, cfg)
         if collect:
             kvs.append(kv)
     return x, states, kvs
@@ -159,7 +136,6 @@ def hybrid_decode_step(params: HybridLM, tokens: torch.Tensor, cache: dict, cfg:
     conv_dt = torch.promote_types(cache["conv"].dtype, x.dtype)
     if cache["conv"].dtype != conv_dt:
         cache["conv"] = cache["conv"].to(conv_dt)
-    shared = params["shared"]
     for stage in range(n_stage):
         for j in range(period):
             layer = stage * period + j
@@ -167,11 +143,8 @@ def hybrid_decode_step(params: HybridLM, tokens: torch.Tensor, cache: dict, cfg:
                                           cache["conv"][layer], cfg)
             cache["ssm"][layer] = st
             cache["conv"][layer] = cv
-        h, _, _ = attn_block_decode(shared["attn"], rms_norm(x, shared["ln1"]), position,
-                                    idx, cache["k"][stage], cache["v"][stage], cfg)
-        x = x + h
-        mlp = shared["mlp"]
-        x = x + swiglu(rms_norm(x, shared["ln2"]), mlp["w1"], mlp["w3"], mlp["w2"])
+        x = dense_layer_decode(params["shared"], x, position, idx, cache["k"][stage],
+                               cache["v"][stage], cfg)
     x = rms_norm(x, params["final_norm"])
     logits = torch.einsum("bsd,dv->bsv", x, params["head"])
     cache["index"] = idx + 1

@@ -77,11 +77,11 @@ def test_configs_equal_the_reference():
     assert dataclasses.asdict(reduced_config(full)) == dataclasses.asdict(jreduced_config(full_j))
     assert full.resolved_head_dim == 80 and full.vocab_padded(16) == 32000
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("qwen3-32b")
+        get_config("grok-1-314b")  # the moe family is not ported yet
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(full, family="dense"), device="cpu")
+        build_model(dataclasses.replace(full, family="moe"), device="cpu")
 
 
 def test_params_from_reference_keeps_bits(pair):
