@@ -88,11 +88,25 @@ Phases, in order; any failure raises and exits non-zero:
 16. phase 14 for qwen3-32b at depth 2;
 17. phase 13 for mamba2-2.7b (ssm) at full width and depth: 64 SSD
     launches per prefill;
-18. phase 14 for mamba2-2.7b at depth 4.
+18. phase 14 for mamba2-2.7b at depth 4;
+19. Table 1 and Algorithm 1: the paper's 14 named topologies at N <= 36
+    (the integers of ``tests/test_golden.py``) through ``metrics.apsp`` on
+    the card (every source in one ``bfs_sweep_kernel`` launch), held equal
+    to its plain version, to the pinned total hops and diameter, to
+    ``bisection_width`` and to ``certify``; ``exhaustive_search(12, 3)``;
+    ``sa_search(16, 4)`` and ``sa_search(32, 4)`` (seed 0, 4000 iterations,
+    4 replicas; host seconds), which must reach the paper's MPL (<= 1.75 and
+    <= 2.36) and equal the reference's (1.75 and 2.3548387...), their graphs
+    rechecked on the card;
+20. ``metrics.apsp_hops`` of phase 7's (8192, 8) graph on the card (all
+    8192 sources, b = 1, sw_pad = 256): its total and diameter against
+    ``certify``'s independent host recomputation and phase 7's mpl; the
+    kernel against its plain version at that shape, timed with CUDA
+    events, and the copy home timed apart.
 
 It prints one ``{"kernels": [...]}`` JSON line (per kernel: launches on the
-main paths (the BFS kernels: phases 5 and 7; the model kernels: phases 13,
-15 and 17),
+main paths (the BFS kernels: phases 5, 7, 19 and 20; the model kernels:
+phases 13, 15 and 17),
 the largest difference from the plain version, kernel, plain and library
 times from CUDA events around a run of calls, and the least time the card
 could take), then the
@@ -787,9 +801,11 @@ def _search_counts() -> tuple[dict, dict, dict]:
 SYMMETRIC_SWEEP_SHAPES = ((1, 1), (1, 2), (1, 16), (1, 64))
 
 
-def phase_symmetric(n: int = 8192, k: int = 8, fold: int = 4, polish_iters: int = 200) -> dict:
+def phase_symmetric(n: int = 8192, k: int = 8, fold: int = 4,
+                    polish_iters: int = 200) -> tuple[dict, object]:
     """The default large-N call, replicas=1: the circulant warm start, then
-    ``symmetric_sa_search`` priced by ``SymmetricAPSP`` on the card."""
+    ``symmetric_sa_search`` priced by ``SymmetricAPSP`` on the card.  Returns
+    both BFS kernels' launches and the search result."""
     import torch
 
     from repro_torch.core import metrics
@@ -873,6 +889,169 @@ def phase_symmetric(n: int = 8192, k: int = 8, fold: int = 4, polish_iters: int 
     recheck(res, n, k, fold, warm)
     profile_run(lambda: large_search(n, k, seed=0, fold=fold, polish_iters=20, device=DEV),
                 "20 iterations, replicas=1")
+    return launches, res
+
+
+
+# the paper's named topologies at N <= 36 (tests/test_golden.py): constructor
+# name and arguments, n, k, diameter, exact total hops, bisection width
+GOLDEN = (
+    ("(16,2)-Ring", "ring", (16,), 16, 2, 8, 1024, 2),
+    ("(16,3)-Wagner", "wagner", (16,), 16, 3, 4, 624, 4),
+    ("(16,3)-Bidiakis", "bidiakis", (16,), 16, 3, 5, 608, 4),
+    ("(16,4)-Torus", "torus", ([4, 4],), 16, 4, 4, 512, 8),
+    ("(32,2)-Ring", "ring", (32,), 32, 2, 16, 8192, 2),
+    ("(32,3)-Wagner", "wagner", (32,), 32, 3, 8, 4576, 4),
+    ("(32,3)-Bidiakis", "bidiakis", (32,), 32, 3, 9, 4032, 4),
+    ("(32,4)-Torus", "torus", ([4, 8],), 32, 4, 6, 3072, 8),
+    ("(32,4)-Chvatal", "chvatal32", (), 32, 4, 4, 2532, 8),
+    ("(12,4)-Chvatal", "chvatal", (), 12, 4, 2, 216, 8),
+    ("(12,3)-Bidiakis", "bidiakis", (12,), 12, 3, 3, 268, 4),
+    ("(20,4)-Dragonfly", "dragonfly", (4, 5, 1), 20, 4, 3, 860, 8),
+    ("(30,5)-Dragonfly", "dragonfly", (5, 6, 1), 30, 5, 3, 2070, 9),
+    ("(36,5)-Dragonfly", "dragonfly", (4, 9, 2), 36, 5, 3, 2952, 20),
+)
+# Algorithm 1 at the paper's Table 1 sizes (tests/test_search.py): the MPL
+# it must reach (1.75 is 0.0167 above the (16, 4) Cerf bound of 1.7333;
+# 2.36 is the paper's 2.35 to two decimals) and the reference's MPL with
+# these arguments (2.3548387... is the (32, 4) Cerf bound itself)
+TABLE1_SA = (((16, 4), 1.75, 1.75), ((32, 4), 2.36, 2.3548387096774195))
+
+
+def _apsp_on_card(g, metrics) -> np.ndarray:
+    """``metrics.apsp`` of ``g`` on the card, held equal to its plain
+    version (the sweep's plain PyTorch version on the CPU); returns the
+    card's distances."""
+    d = metrics.apsp(g, device=DEV)
+    check(np.array_equal(d, metrics.apsp(g, device="cpu")),
+          f"apsp on the card differs from its plain version ({g.name})")
+    return d
+
+
+def phase_table1() -> dict:
+    """Table 1 and Algorithm 1 on the card's machine: the golden rows through
+    ``apsp`` on the card, ``bisection_width`` and ``certify``;
+    ``exhaustive_search(12, 3)``; ``sa_search`` at (16, 4) and (32, 4), its
+    graphs rechecked on the card.  Returns both BFS kernels' launches."""
+    from repro_torch.core import certify, graphs, metrics, search
+    from repro_torch.kernels import bfs_sweep as bs
+
+    log("[19] Table 1 and Algorithm 1: golden rows through apsp on the card, "
+        "bisection_width and certify")
+    _reset_search_counts()
+    t0 = time.perf_counter()
+    for name, fn, args, n, k, diam, total, bw in GOLDEN:
+        g = getattr(graphs, fn)(*args)
+        check(g.n == n and g.is_regular() and g.degree() == k, f"{name}: not ({n},{k})")
+        d = _apsp_on_card(g, metrics)
+        got_total = int(d[~np.eye(n, dtype=bool)].sum())
+        check(got_total == total and metrics.diameter(g, d) == diam,
+              f"{name}: total {got_total}, diameter {metrics.diameter(g, d)}; "
+              f"pinned {total}, {diam}")
+        check(metrics.mpl(g, d) == total / (n * (n - 1)), f"{name}: mpl")
+        got_bw = metrics.bisection_width(g, restarts=24, seed=0)
+        cert = certify.certify(g, bisection=True)
+        check(got_bw == bw and (cert.total_hops, cert.diameter, cert.bisection)
+              == (total, diam, bw), f"{name}: bisection {got_bw}, certificate {cert}")
+        log(f"    {name}: total {total}, diameter {diam}, mpl {total / (n * (n - 1)):.4f}, "
+            f"bisection {bw}; sweep plan {bs.sweep_plan(n, k).graph} "
+            f"({bs.sweep_plan(n, k).threads} threads): card == plain == pinned == certify")
+    log(f"    14 golden rows in {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    ex = search.exhaustive_search(12, 3)
+    t_ex = time.perf_counter() - t0
+    d = _apsp_on_card(ex.graph, metrics)
+    check(ex.iterations == 3326 and ex.mpl == ex.mpl_lb == 252 / 132 and ex.diameter == 3
+          and metrics.mpl(ex.graph, d) == ex.mpl and ex.graph.degree() == 3,
+          f"exhaustive_search(12, 3): mpl {ex.mpl!r}, {ex.iterations} candidates")
+    log(f"    exhaustive_search(12, 3): {ex.iterations} candidates in {t_ex:.2f} s (host), "
+        f"mpl {float(ex.mpl)!r} = its Cerf bound, diameter {ex.diameter}")
+
+    for (n, k), limit, ref_mpl in TABLE1_SA:
+        t0 = time.perf_counter()
+        res = search.sa_search(n, k, seed=0, n_iter=4000, replicas=4)
+        secs = time.perf_counter() - t0
+        g = res.graph
+        d = _apsp_on_card(g, metrics)
+        ring_edges = {(min(i, (i + 1) % n), max(i, (i + 1) % n)) for i in range(n)}
+        check(g.is_regular() and g.degree() == k and ring_edges <= set(g.edges),
+              f"sa_search({n}, {k}): not a Hamiltonian {k}-regular graph")
+        check(metrics.mpl(g, d) == res.mpl and metrics.diameter(g, d) == res.diameter,
+              f"sa_search({n}, {k}): reported mpl/diameter differ from the card's apsp")
+        check(res.mpl <= limit + 1e-9 and res.mpl == ref_mpl,
+              f"sa_search({n}, {k}): mpl {res.mpl!r}, the paper's <= {limit}, "
+              f"the reference's {ref_mpl!r}")
+        log(f"    sa_search({n}, {k}, seed=0, n_iter=4000, replicas=4): {secs:.2f} s on the "
+            f"host; mpl {res.mpl!r} (<= {limit}, equal to the reference's), Cerf bound "
+            f"{res.mpl_lb!r}, diameter {res.diameter}, accepted {res.accepted}, "
+            f"evals_delta {res.evals_delta}, evals_full {res.evals_full}")
+    launches, shapes, _ = _search_counts()
+    log(f"    bfs_sweep_kernel launches by (b, sw_pad): {shapes}")
+    check(launches["bfs_sweep_kernel"] == len(GOLDEN) + 1 + len(TABLE1_SA),
+          f"one sweep per graph expected: {launches}")
+    return launches
+
+
+def phase_whole_graph(res) -> dict:
+    """``apsp_hops`` of the graph phase 7 found, on the card: every one of
+    its n sources swept at once (b = 1, sw_pad = n / 32), the kernel timed
+    with CUDA events and the copy home apart, held against its plain
+    version on the card, ``certify``'s independent host recomputation and
+    phase 7's mpl and diameter.  Returns both BFS kernels' launches."""
+    import torch
+
+    from repro_torch.core import certify, metrics
+    from repro_torch.kernels import bfs_sweep as bs
+
+    g = res.graph
+    n = g.n
+    adj = g.adjacency()
+    _reset_search_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hops = metrics.apsp_hops(adj, device=DEV)
+    t_call = time.perf_counter() - t0
+    launches, shapes, _ = _search_counts()
+    total, diam = int(hops.sum(dtype=np.int64)), int(hops.max())
+    t0 = time.perf_counter()
+    cert = certify.certify(g)
+    t_cert = time.perf_counter() - t0
+    log(f"[20] apsp_hops of phase 7's ({n}, {g.degree()}) graph on the card: "
+        f"{t_call:.3f} s a call (neighbour table, upload, kernel, {hops.nbytes} B home); "
+        f"total {total}, diameter {diam}; certify on the host {t_cert:.2f} s: total "
+        f"{cert.total_hops}, diameter {cert.diameter}; launches by (b, sw_pad) {shapes}")
+    check(cert.connected and (total, diam) == (cert.total_hops, cert.diameter),
+          "apsp_hops on the card disagrees with certify")
+    check(total / (n * (n - 1)) == res.mpl and float(diam) == res.diameter,
+          "apsp_hops on the card disagrees with phase 7's mpl and diameter")
+    check(launches["bfs_sweep_kernel"] == 1, f"one sweep expected: {launches}")
+
+    # the same sweep by its parts: the kernel (CUDA events) and the copy home
+    dev = torch.device(DEV)
+    nb, vm, F0, sw_pad, _ = bs.pack_batch(metrics._nbr_table(adj)[None], np.arange(n))
+    nb, vm, F0 = (bs.as_words(a, dev) for a in (nb, vm, F0))
+    out = bs.sweep(nb, vm, F0, n)
+    check(torch.equal(out, bs.sweep_rows_ref(nb, vm, F0, n)),
+          "bfs_sweep_kernel != sweep_rows_ref at the whole-graph shape")
+    check(np.array_equal(out[0].cpu().numpy(), hops), "the sweep's rows differ from apsp_hops")
+    ms = cuda_ms(lambda: bs.sweep(nb, vm, F0, n), reps=3, n=5)
+    plain_ms = cuda_ms(lambda: bs.sweep_rows_ref(nb, vm, F0, n), reps=3, n=1)
+    copies = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.cpu()
+        copies.append((time.perf_counter() - t0) * 1e3)
+    nbytes = (nb.numel() + vm.numel() + F0.numel() + out.numel()) * 4
+    nops = (diam + 1) * n * nb.shape[2] * sw_pad * 2  # AND + OR per gather, each level
+    bms, by, terms = bound(nbytes, [(nops, INT32_OPS_PER_S)])
+    plan = bs.sweep_plan(n, nb.shape[2])
+    log(f"    bfs_sweep_kernel at b=1, n={n}, kmax={nb.shape[2]}, sw_pad={sw_pad} "
+        f"({plan.graph} graph, {plan.threads} threads x {plan.vpt}): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({terms}), bit-exact against its "
+        f"plain version; copy home of "
+        f"{out.numel() * 4} B {float(np.median(copies)):.2f} ms (host clock, median of 3)")
     return launches
 
 
@@ -1505,7 +1684,7 @@ def main() -> int:
     phase_card_vs_cpu()
     # the BFS kernels' launches on both search paths: the replica polish
     # (phase 5) and the default replicas=1 polish (phase 7)
-    sym = phase_symmetric()
+    sym, sym_res = phase_symmetric()
     log(f"    launches on the main paths: replica polish {launches}, symmetric polish {sym}")
     launches = {name: launches[name] + sym[name] for name in launches}
     phase_symmetric_pinned()
@@ -1524,6 +1703,14 @@ def main() -> int:
     served.append(phase_serve("mamba2-2.7b", 17))
     phase_model_card_vs_cpu("mamba2-2.7b", 18, depth=4)
     elapsed("17-18")
+    # the BFS kernels' launches on the invariants' paths: Table 1 (phase 19)
+    # and the whole-graph check of phase 7's graph (phase 20)
+    invariants = [phase_table1(), phase_whole_graph(sym_res)]
+    elapsed("19-20")
+    log(f"    launches on the invariants' paths: Table 1 {invariants[0]}, "
+        f"whole graph {invariants[1]}")
+    for run in invariants:
+        launches = {name: launches[name] + run[name] for name in launches}
     log(f"    launches on the serving paths: zamba2 {served[0]}, qwen3 {served[1]}, "
         f"mamba2 {served[2]}")
     launches.update({name: sum(run[name] for run in served) for name in served[0]})

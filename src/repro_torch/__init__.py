@@ -13,6 +13,16 @@ PyTorch versions and is honoured only when the caller asks for it.
 
 Ported so far:
 
+- the paper's small-N tiers and its evidence chain:
+  ``core.search.sa_search`` (Algorithm 1: replica annealing over 2-edge
+  swaps, priced by ``core.metrics.IncrementalAPSP``),
+  ``exhaustive_search`` and ``sa_objective_search``, on the host as in the
+  reference; the named topologies of Tables 1 and 2 (``core.graphs``); the
+  graph invariants of ``core.metrics`` (``apsp``/``apsp_hops`` on the
+  device through the BFS sweep kernel, ``stats``, ``girth``,
+  ``bisection_width``); the certified best-known-graph table and its
+  independent host recomputation (``core.certify``, ``data/certified.json``,
+  which ``core.known_optimal`` loads);
 - the large-N search tier, ``repro_torch.core.search.large_search(n, k)``:
   the circulant warm start (its batched pricer in
   ``core.engines.torch_circulant``), then the single-chain
@@ -21,7 +31,8 @@ Ported so far:
   (``replicas=R >= 2``).  Both polishes price through two kernels (the
   word-packed BFS sweep and the min-plus insert patch), hand-written CUDA
   C++ in ``kernels/csrc/bfs_sweep.cu``;
-- the serving path of the hybrid family (zamba2-2.7b):
+- the serving path of the hybrid (zamba2-2.7b), dense (qwen3-32b and the
+  other dense configs) and SSM (mamba2-2.7b) families:
   ``configs``, ``models`` (``build_model``, ``Model.init/prefill/
   decode_step``), ``serve.ServingEngine`` and ``launch.serve``, whose two
   kernels are hand-written CUDA C++: forward attention
@@ -29,8 +40,27 @@ Ported so far:
   (``kernels/csrc/ssd_scan.cu``).  ``convert.params_from_reference`` loads
   the JAX package's weights.
 
-Other model families, loss and training are not ported yet (ROADMAP.md).
+The specs, topologies and api facade (``find_optimal``, ``graphs.build``),
+routing, simulation and collectives, the other model families, loss and
+training are not ported yet (ROADMAP.md).
 """
+from .core.certify import certify, verify_entry
+from .core.metrics import IncrementalAPSP, apsp, apsp_hops, bisection_width, girth, stats
+from .core.search import exhaustive_search, large_search, sa_objective_search, sa_search
 from .device import resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = [
+    "IncrementalAPSP",
+    "apsp",
+    "apsp_hops",
+    "bisection_width",
+    "certify",
+    "exhaustive_search",
+    "girth",
+    "large_search",
+    "resolve_device",
+    "sa_objective_search",
+    "sa_search",
+    "stats",
+    "verify_entry",
+]

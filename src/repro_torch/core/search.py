@@ -1,13 +1,25 @@
-"""The large-N tier of the topology search (the counterpart of
-``repro.core.search``'s ``large_search``, ``symmetric_sa_search`` and
-``circulant_search``).
+"""Topology discovery (the counterpart of ``repro.core.search``): the
+paper's Algorithm 1 and the symmetry-restricted large-N tier.
 
-``large_search(n, k)`` runs a circulant warm start (a pinned offset set, or
-the hillclimb ``circulant_search``), then a polish warm-started from it:
-with ``replicas=1`` (the default) ``symmetric_sa_search``, one annealing
-chain whose orbit swaps ``metrics.SymmetricAPSP`` prices incrementally on
-the device; with ``replicas=R >= 2`` ``_replica_polish``, R lockstep chains
-whose R*M proposals per iteration are priced in one device dispatch through
+Small n, on the host:
+
+1. ``exhaustive_search``: enumerate ring + perfect-matching chord graphs
+   (k = 3, optionally girth-pruned) and keep the min-MPL one.
+2. ``sa_search``: the paper's Algorithm 1, simulated annealing over
+   non-ring 2-edge swaps of a random Hamiltonian regular graph, R replicas
+   with periodic best-replica exchange, each swap priced by
+   ``metrics.IncrementalAPSP``; ``sa_objective_search`` anneals an
+   arbitrary objective.  The dense state is tens of kilobytes at the
+   n <= 64 this tier serves and a proposal costs microseconds, below one
+   kernel launch, so these tiers stay numpy.
+
+Large n, on the device: ``large_search(n, k)`` runs a circulant warm start
+(a pinned offset set, or the hillclimb ``circulant_search``), then a polish
+warm-started from it: with ``replicas=1`` (the default)
+``symmetric_sa_search``, one annealing chain whose orbit swaps
+``metrics.SymmetricAPSP`` prices incrementally on the device; with
+``replicas=R >= 2`` ``_replica_polish``, R lockstep chains whose R*M
+proposals per iteration are priced in one device dispatch through
 ``core.engines.cuda_sweep``.  Both price through the hand-written CUDA
 kernels on a CUDA device and through their plain PyTorch versions when the
 caller passes ``device="cpu"``.  The hillclimb prices its candidates with
@@ -15,14 +27,17 @@ the numpy pricer, or in batches on the device (``engines.torch_circulant``,
 picked at n >= 4096).
 
 The randomness is the reference's: host numpy Generators,
-``default_rng(seed)`` in the hillclimb and the single-chain polish and
-``default_rng([seed, r])`` per replica chain, consumed in the same order,
-and every accept is decided on exact integer hop totals.  So per seed the
-port follows the reference's trajectory bit for bit and returns the same
-graph.  ``SearchResult``, ``_mpl_fast``, ``_circulant_profile``,
-``circulant_search``, ``_orbit``, ``_draw_orbit_swap``,
-``_symmetric_random_start``, ``_circulant_orbits`` and
-``symmetric_sa_search`` are copies of the reference's.
+``default_rng(seed)`` in the hillclimb, the single-chain polish and
+``sa_objective_search``, and ``default_rng([seed, r])`` per replica chain
+(``sa_search`` and the replica polish), consumed in the same order, and
+every accept is decided on exact integer hop totals.  So per seed the port
+follows the reference's trajectory bit for bit and returns the same graph.
+``SearchResult``, ``KNOWN_OPTIMAL_MPL``, ``_mpl_fast``, ``_graph_mpl_d``,
+``exhaustive_search``, ``_edge_swap``, ``_Replica``, ``_chord_array``,
+``_sa_chunk_py``, ``sa_search``, ``sa_objective_search``,
+``_circulant_profile``, ``circulant_search``, ``_orbit``,
+``_draw_orbit_swap``, ``_symmetric_random_start``, ``_circulant_orbits``
+and ``symmetric_sa_search`` are copies of the reference's.
 """
 from __future__ import annotations
 
@@ -35,10 +50,23 @@ import torch
 from ..device import resolve_device
 from . import metrics
 from .engines import cuda_sweep, torch_circulant
-from .graphs import Graph, circulant, from_edges
+from .graphs import Graph, circulant, from_edges, random_hamiltonian_regular, ring
 from .known_optimal import KNOWN_CIRCULANT_OFFSETS
 
-__all__ = ["SearchResult", "circulant_search", "large_search", "symmetric_sa_search"]
+__all__ = ["SearchResult", "sa_search", "exhaustive_search", "sa_objective_search",
+           "circulant_search", "large_search", "symmetric_sa_search", "KNOWN_OPTIMAL_MPL"]
+
+# Published MPL values for optimal graphs (paper TABLE 1/2) — used as search
+# targets and test ground truth.
+KNOWN_OPTIMAL_MPL = {
+    (16, 3): 2.20,
+    (16, 4): 1.75,
+    (32, 3): 2.94,
+    (32, 4): 2.35,
+    (20, 4): 1.95,
+    (30, 5): 1.97,
+    (36, 5): 2.14,
+}
 
 
 @dataclasses.dataclass
@@ -67,6 +95,351 @@ class SearchResult:
     @property
     def d_gap(self) -> float:
         return self.diameter - self.d_lb
+
+
+def _graph_mpl_d(g: Graph) -> tuple[float, float]:
+    return _mpl_fast(g.adjacency())
+
+
+# --------------------------------------------------------------------------------
+# Tier 1: exhaustive (tiny graphs)
+# --------------------------------------------------------------------------------
+
+def exhaustive_search(
+    n: int,
+    k: int,
+    girth_min: int = 3,
+    limit: int = 2_000_000,
+) -> SearchResult:
+    """Exhaustive search over ring + chord-set graphs for tiny (n, k).
+
+    We enumerate Hamiltonian k-regular graphs (ring + (k-2)-regular chord
+    graph).  For k=3 the chords are a perfect matching — tractable up to
+    n≈16.  A ``girth_min`` constraint prunes, mirroring the paper's use of
+    girth to cut the (32,3) space from 1e13 to 1e5.
+    """
+    if k != 3:
+        raise NotImplementedError("exhaustive tier implemented for k=3 (matching chords)")
+    ring_edges = [(i, (i + 1) % n) for i in range(n)]
+    best: tuple[float, float, Graph] | None = None
+    count = 0
+
+    verts = list(range(n))
+
+    def matchings(avail: list[int]):
+        if not avail:
+            yield []
+            return
+        u = avail[0]
+        for j in range(1, len(avail)):
+            v = avail[j]
+            if (v - u) % n in (1, n - 1):
+                continue  # ring edge
+            rest = avail[1:j] + avail[j + 1 :]
+            for m in matchings(rest):
+                yield [(u, v)] + m
+
+    for chords in matchings(verts):
+        count += 1
+        if count > limit:
+            break
+        g = from_edges(n, ring_edges + chords, f"({n},{k})-cand")
+        if girth_min > 3 and metrics.girth(g) < girth_min:
+            continue
+        mp, dia = _graph_mpl_d(g)
+        if best is None or (mp, dia) < (best[0], best[1]):
+            best = (mp, dia, g.with_name(f"({n},{k})-Optimal"))
+    assert best is not None
+    mp, dia, g = best
+    return SearchResult(
+        graph=g,
+        mpl=mp,
+        diameter=dia,
+        mpl_lb=metrics.mpl_lower_bound(n, k),
+        d_lb=metrics.diameter_lower_bound(n, k),
+        iterations=count,
+        accepted=count,
+        history=[mp],
+    )
+
+
+# --------------------------------------------------------------------------------
+# Tier 2: the paper's Algorithm 1 — SA with edge swap
+# --------------------------------------------------------------------------------
+
+def _edge_swap(adj: np.ndarray, ring_mask: np.ndarray, rng: np.random.Generator):
+    """Propose a 2-edge swap on non-ring edges, in place on a copy.
+
+    Pick edges (a,b), (c,d) not on the ring, replace with (a,c),(b,d) or
+    (a,d),(b,c) — preserves degrees.  Returns the new adjacency or None if the
+    proposal is invalid (duplicate/self edge).
+    """
+    n = adj.shape[0]
+    iu, ju = np.where(np.triu(adj & ~ring_mask))
+    if len(iu) < 2:
+        return None
+    e1, e2 = rng.choice(len(iu), size=2, replace=False)
+    a, b = int(iu[e1]), int(ju[e1])
+    c, d = int(iu[e2]), int(ju[e2])
+    if len({a, b, c, d}) != 4:
+        return None
+    if rng.integers(2):
+        p1, p2 = (a, c), (b, d)
+    else:
+        p1, p2 = (a, d), (b, c)
+    if adj[p1] or adj[p2]:
+        return None
+    out = adj.copy()
+    out[a, b] = out[b, a] = False
+    out[c, d] = out[d, c] = False
+    out[p1] = out[p1[::-1]] = True
+    out[p2] = out[p2[::-1]] = True
+    return out
+
+
+class _Replica:
+    """One annealing chain: incremental-APSP state + chord list + best."""
+
+    __slots__ = ("ev", "chords", "best_adj", "cur_total", "cur_diam",
+                 "best_total", "best_diam", "t", "rng",
+                 "hist_iters", "hist_totals", "hist_io", "accepted")
+
+    def __init__(self, adj: np.ndarray, ring_mask: np.ndarray,
+                 t_start: float, rng: np.random.Generator, n_iter: int):
+        self.ev = metrics.IncrementalAPSP(adj)
+        self.chords = _chord_array(adj, ring_mask)
+        self.best_adj = adj.copy()
+        self.cur_total = self.best_total = self.ev.total
+        self.cur_diam = self.best_diam = self.ev.diam
+        self.t = t_start
+        self.rng = rng
+        cap = max(n_iter, 1)
+        self.hist_iters = np.empty(cap, dtype=np.int32)
+        self.hist_totals = np.empty(cap, dtype=np.int64)
+        self.hist_io = np.asarray([cap, 0], dtype=np.int32)
+        self.accepted = 0
+
+    def load_best_of(self, other: "_Replica", ring_mask: np.ndarray) -> None:
+        """Replica exchange: adopt another chain's best state as current."""
+        self.ev.adj[...] = other.best_adj
+        self.ev.reset()
+        self.chords = _chord_array(self.ev.adj, ring_mask)
+        self.cur_total, self.cur_diam = self.ev.total, self.ev.diam
+
+
+def _chord_array(adj: np.ndarray, ring_mask: np.ndarray) -> np.ndarray:
+    iu, ju = np.nonzero(np.triu(adj & ~ring_mask))
+    return np.ascontiguousarray(np.stack([iu, ju], axis=1).astype(np.int32))
+
+
+def _sa_chunk_py(rep: _Replica, n: int, de1, de2, dorient, du,
+                 gamma: float, target_total: int, iter_base: int, norm: float) -> int:
+    """The annealing inner loop over one chunk of pre-drawn randomness: the
+    reference's pure-python mirror of its C ``sa_chunk`` (the same
+    trajectory as either of the reference's paths)."""
+    ev = rep.ev
+    done = 0
+    for i in range(len(de1)):
+        rep.t *= gamma
+        done = i + 1
+        e1, e2 = int(de1[i]), int(de2[i])
+        if e1 == e2:
+            continue
+        a, b = int(rep.chords[e1, 0]), int(rep.chords[e1, 1])
+        c, d = int(rep.chords[e2, 0]), int(rep.chords[e2, 1])
+        if a == c or a == d or b == c or b == d:
+            continue
+        p1, p2 = ((a, c), (b, d)) if dorient[i] else ((a, d), (b, c))
+        if ev.adj[p1] or ev.adj[p2]:
+            continue
+        tok = ev.evaluate_swap([(a, b), (c, d)], [p1, p2])
+        if tok.diam >= n:  # disconnected: dm = +inf, always rejected
+            continue
+        dm = (tok.total - rep.cur_total) / norm
+        if not dm < 0.0:
+            if not du[i] < math.exp(-dm / max(rep.t, 1e-12)):
+                continue
+        ev.commit(tok)
+        rep.chords[e1] = p1
+        rep.chords[e2] = p2
+        rep.cur_total, rep.cur_diam = tok.total, ev.diam
+        rep.accepted += 1
+        if (rep.cur_total, rep.cur_diam) < (rep.best_total, rep.best_diam):
+            rep.best_total, rep.best_diam = rep.cur_total, rep.cur_diam
+            rep.best_adj[...] = ev.adj
+            cnt = int(rep.hist_io[1])
+            if cnt < int(rep.hist_io[0]):
+                rep.hist_iters[cnt] = iter_base + i
+                rep.hist_totals[cnt] = rep.cur_total
+                rep.hist_io[1] = cnt + 1
+            if 0 <= target_total and rep.best_total <= target_total:
+                break
+    return done
+
+
+def _run_chunk(rep: _Replica, n: int, chunk: int, iter_base: int,
+               gamma: float, target_total: int, norm: float) -> int:
+    """Draw this chunk's randomness from the replica stream and execute it.
+
+    The draws are the reference's, in its order, whichever of its paths it
+    takes; the loop is always its python mirror (the C ``sa_chunk`` has no
+    counterpart), so the trajectory is the same."""
+    m_c = max(len(rep.chords), 1)
+    ints = rep.rng.integers(0, [m_c, m_c, 2], size=(chunk, 3))
+    de1 = np.ascontiguousarray(ints[:, 0], dtype=np.int32)
+    de2 = np.ascontiguousarray(ints[:, 1], dtype=np.int32)
+    dorient = np.ascontiguousarray(ints[:, 2], dtype=np.int32)
+    du = rep.rng.random(chunk)
+    if len(rep.chords) < 2:
+        return chunk  # no swappable chords (k == 2): pure cooling
+    return _sa_chunk_py(rep, n, de1, de2, dorient, du, gamma, target_total,
+                        iter_base, norm)
+
+
+def sa_search(
+    n: int,
+    k: int,
+    seed: int = 0,
+    n_iter: int = 4000,
+    t_start: float = 0.1,
+    t_end: float = 1e-4,
+    target_mpl: float | None = None,
+    start: Graph | None = None,
+    replicas: int = 1,
+    exchange_every: int = 400,
+) -> SearchResult:
+    """Paper Algorithm 1, rebuilt: parallel-replica SA with incremental MPL.
+
+    ``replicas`` independent chains anneal under the shared schedule, each on
+    its own PRNG stream (``[seed, r]``); every ``exchange_every`` iterations
+    the globally best state replaces the worst chain.  Replica 0 is never
+    overwritten, so its trajectory is bit-identical to a ``replicas=1`` run
+    with the same seed — best-of-R can only improve on it.
+
+    Swap pricing is ``metrics.IncrementalAPSP`` delta evaluation on the
+    host, and the inner loop is the reference's python mirror of its C
+    ``sa_chunk``: both of the reference's paths consume the same pre-drawn
+    streams, so every field of the result equals the reference's per seed.
+    The dense (n, n) state is tens of kilobytes at the n <= 64 this tier
+    serves and a proposal costs microseconds, below one kernel launch, so
+    the tier stays on the host (the row-restricted device state is
+    ``symmetric_sa_search``'s).
+    """
+    ring_mask = ring(n).adjacency()
+    gamma = math.exp(math.log(t_end / t_start) / n_iter) if n_iter else 1.0
+    norm = n * (n - 1)
+    lb = metrics.mpl_lower_bound(n, k)
+    tgt = target_mpl if target_mpl is not None else lb
+    target_total = math.floor((tgt + 1e-9) * norm + 1e-9)
+
+    reps: list[_Replica] = []
+    for r in range(replicas):
+        # a generous retry cap: some (n, k, seed) streams need >500 pairing
+        # draws (e.g. (30,5) seed [0,1]); extra tries only consume the stream
+        # after the old cap would have errored, so existing trajectories are
+        # untouched
+        g0 = start or random_hamiltonian_regular(n, k, seed=[seed, r],
+                                                 max_tries=20000)
+        reps.append(_Replica(g0.adjacency(), ring_mask, t_start,
+                             np.random.default_rng([seed, r]), n_iter))
+
+    done = 0
+    hit = min(rep.best_total for rep in reps) <= target_total
+    while done < n_iter and not hit:
+        chunk = min(exchange_every, n_iter - done)
+        for rep in reps:
+            _run_chunk(rep, n, chunk, done, gamma, target_total, norm)
+            if rep.best_total <= target_total:
+                hit = True
+                break
+        done += chunk
+        if hit or done >= n_iter:
+            break
+        if replicas > 1:
+            gb = min(range(replicas),
+                     key=lambda r: (reps[r].best_total, reps[r].best_diam, r))
+            worst = max(range(1, replicas),
+                        key=lambda r: (reps[r].cur_total, reps[r].cur_diam, -r))
+            if (reps[gb].best_total, reps[gb].best_diam) < \
+                    (reps[worst].cur_total, reps[worst].cur_diam):
+                reps[worst].load_best_of(reps[gb], ring_mask)
+
+    gb = min(range(replicas), key=lambda r: (reps[r].best_total, reps[r].best_diam, r))
+    best = reps[gb]
+    iu, ju = np.where(np.triu(best.best_adj))
+    g = from_edges(n, zip(iu.tolist(), ju.tolist()), f"({n},{k})-Optimal-SA")
+
+    # merged best-so-far trace across replicas (running global minimum)
+    events = sorted(
+        (int(it), int(tot))
+        for rep in reps
+        for it, tot in zip(rep.hist_iters[: int(rep.hist_io[1])],
+                           rep.hist_totals[: int(rep.hist_io[1])])
+    )
+    history = []
+    running = float("inf")
+    for _, tot in events:
+        if tot < running:
+            running = tot
+            history.append(tot / norm)
+
+    return SearchResult(
+        graph=g,
+        mpl=best.best_total / norm,
+        diameter=float(best.best_diam),
+        mpl_lb=lb,
+        d_lb=metrics.diameter_lower_bound(n, k),
+        iterations=n_iter,
+        accepted=sum(rep.accepted for rep in reps),
+        history=history or [best.best_total / norm],
+        replicas=replicas,
+        evals_delta=int(sum(rep.ev.n_delta for rep in reps)),
+        evals_full=int(sum(rep.ev.n_full for rep in reps)),
+    )
+
+
+def sa_objective_search(
+    n: int,
+    k: int,
+    objective,
+    seed: int = 0,
+    n_iter: int = 4000,
+    t_start: float = 0.1,
+    t_end: float = 1e-4,
+    start: Graph | None = None,
+) -> Graph:
+    """SA over edge swaps minimizing an arbitrary ``objective(Graph) -> float``.
+
+    Used for reconstructions (e.g. pinning a graph that matches published
+    invariants) and for the beyond-paper layout optimization.
+    """
+    rng = np.random.default_rng(seed)
+    g0 = start or random_hamiltonian_regular(n, k, seed=seed)
+    adj = g0.adjacency()
+    ring_mask = ring(n).adjacency()
+    gamma = math.exp(math.log(t_end / t_start) / n_iter)
+
+    def to_graph(a):
+        iu, ju = np.where(np.triu(a))
+        return from_edges(n, zip(iu.tolist(), ju.tolist()), f"({n},{k})-obj")
+
+    cur = objective(to_graph(adj))
+    best_adj, best = adj.copy(), cur
+    t = t_start
+    for _ in range(n_iter):
+        prop = _edge_swap(adj, ring_mask, rng)
+        t *= gamma
+        if prop is None:
+            continue
+        val = objective(to_graph(prop))
+        dv = val - cur
+        if dv < 0 or rng.random() < math.exp(-dv / max(t, 1e-12)):
+            adj, cur = prop, val
+            if cur < best:
+                best_adj, best = adj.copy(), cur
+                if best <= 0:
+                    break
+    return to_graph(best_adj)
 
 
 # --------------------------------------------------------------------------------
