@@ -32,7 +32,7 @@ Phases, in order; any failure raises and exits non-zero:
    the largest sums, unaligned tensors; checked, not timed), each with the
    instantiation ``patch_plan`` gave it;
 5. the main path, ``large_search(8192, 8, replicas=8, proposal_batch=4,
-   polish_iters=64)`` on the card, with both kernels' launches counted (the
+   polish_iters=32)`` on the card, with both kernels' launches counted (the
    sweep's also by (b, sw_pad), the patch's by (b, mmax)) and the result
    rechecked; then a short delta=False run, which must follow the same
    trajectory as delta=True over the same iterations;
@@ -102,10 +102,24 @@ Phases, in order; any failure raises and exits non-zero:
     8192 sources, b = 1, sw_pad = 256): its total and diameter against
     ``certify``'s independent host recomputation and phase 7's mpl; the
     kernel against its plain version at that shape, timed with CUDA
-    events, and the copy home timed apart.
+    events, and the copy home timed apart;
+21. the paper's 256-node suite through ``repro_torch.api``:
+    ``run_experiment(paper_suite("256"), [stats (bw_restarts=8),
+    alltoall-64KB])`` on the card, serial (the four ``suboptimal`` graphs
+    searched through both BFS kernels at n = 256, s = 64; every graph's
+    ``stats`` through ``apsp`` on the card): each graph's edges, diameter,
+    MPL and bisection width equal to the JAX package's, each alltoall time
+    within a relative 1e-9, (256,8)-Suboptimal at least 10x faster than
+    (256,3)-Wagner on alltoall (Fig 10's anchor); Fig 10's eight workloads
+    on (256,8)-Suboptimal within 1e-9; ``apsp`` of the degree-11
+    dragonflies of Tables 5/6 (the sweep's global instantiation) against
+    its plain version and pinned totals; host seconds per build and cell;
+    both kernels' launches by shape, the first call at each shape held
+    against its plain version bit for bit and timed beside its bound, and
+    Table 1's sweep shapes timed.
 
 It prints one ``{"kernels": [...]}`` JSON line (per kernel: launches on the
-main paths (the BFS kernels: phases 5, 7, 19 and 20; the model kernels:
+main paths (the BFS kernels: phases 5, 7, 19, 20 and 21; the model kernels:
 phases 13, 15 and 17),
 the largest difference from the plain version, kernel, plain and library
 times from CUDA events around a run of calls, and the least time the card
@@ -662,7 +676,7 @@ def recheck(res, n: int, k: int, fold: int, warm: float) -> None:
 
 
 def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
-               proposal_batch: int = 4, polish_iters: int = 64) -> dict:
+               proposal_batch: int = 4, polish_iters: int = 32) -> dict:
     import torch
 
     from repro_torch.core.engines import cuda_sweep
@@ -1052,6 +1066,291 @@ def phase_whole_graph(res) -> dict:
         f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({terms}), bit-exact against its "
         f"plain version; copy home of "
         f"{out.numel() * 4} B {float(np.median(copies)):.2f} ms (host clock, median of 3)")
+    return launches
+
+
+# Table 4 and Fig 10 of the paper at 256 nodes (paper_suite("256")), as the
+# JAX package computes them on a CPU: sha256 of the edge list (JSON of
+# [u, v] pairs), diameter, MPL, bisection width (stats, bw_restarts=8) and
+# the alltoall time at 64 KB per pair (the TAISHAN model, seconds)
+SUITE256 = {
+    "(256,2)-Ring": ("e18180daa2da1aee31f04952ab5bdcd3ce15b3cfd19f2c91445bbd32d998c061",
+                     128, 64.25098039215686, 2, 11.111756933050843),
+    "(256,3)-Wagner": ("46b80144f9db21f7b82e7ce6876c645c9c0c07bcbd79fbe595ed4b41866283e6",
+                       64, 32.62352941176471, 4, 7.8248158779661035),
+    "(256,3)-Bidiakis": ("374978dda4bf2f0cf8c3a0387e9fe8a9373c655ce85cd3f9fdd6f51cc9985988",
+                         65, 25.090196078431372, 4, 7.924837778813556),
+    "(256,3)-Suboptimal": ("fc8a231b628b823a4c6398115857cb0e89ebb86b0d88acac2cc681b39a4e2f46",
+                           9, 5.768198529411765, 46, 1.4594952372881371),
+    "(256,4)-Torus": ("048d8df11dccac0ac722042f645ba06bf51acad398760e60db0dcbc40e535b48",
+                      16, 8.031372549019608, 32, 3.2224398550847453),
+    "(256,4)-Suboptimal": ("4e501757fabccbb53942d2f7ff835122ed9a6da226605abcdae13bb4034d4f32",
+                           6, 4.214950980392157, 92, 1.0444005144067803),
+    "(256,6)-Torus": ("ea15f973b63172102af39f035276981d850a09c31860e18f76e9c7fd3b3c853c",
+                      10, 5.019607843137255, 64, 1.649734570338985),
+    "(256,6)-Suboptimal": ("dd3ed492058d64d30b8463e2d9599b0e1df5d39c733cf3e4f271891db60d4c12",
+                           5, 3.238357843137255, 182, 0.764333454237289),
+    "(256,8)-Torus": ("55f08252ebbd783d4d6ac5c5aff67d8be4be48d5e7f74b572368f521e61d2de3",
+                      8, 4.015686274509804, 128, 2.3177407415254274),
+    "(256,8)-Suboptimal": ("50a1ab58ce4ac606afa77dc0adf82e93b6f8bd221f5e06190f571da155f6c64f",
+                           4, 2.8147671568627453, 278, 0.6526307364406781),
+}
+# Fig 10's eight workloads (benchmarks/fig10_large_sim.py) and their values
+# on (256,8)-Suboptimal, from the JAX package on a CPU
+FIG10 = (
+    ("alltoall-64KB", "collective", {"op": "alltoall", "unit_bytes": 64 << 10}, 0.6526307364406781),
+    ("alltoall-512KB", "collective", {"op": "alltoall", "unit_bytes": 512 << 10}, 4.174913041525425),
+    ("beff", "beff", {"n_sizes": 5, "n_random": 2}, 6527098662.817301),
+    ("ffte", "ffte", {"array_len": 1 << 21}, 0.46024219473220374),
+    ("g500-bfs", "graph500", {"scale": 12}, 1.3811703775661024),
+    ("npb-is-S", "npb", {"kernel": "is", "klass": "S"}, 1.5433043817627126),
+    ("npb-is-A", "npb", {"kernel": "is", "klass": "A"}, 1.583323684542374),
+    ("npb-ft-A", "npb", {"kernel": "ft", "klass": "A"}, 3.3102480435254256),
+)
+# Table 5/6's dragonflies (paper_suite("large-dragonfly")): degree 11, the
+# sweep's "global" instantiation; n, total hops, diameter
+LARGE_DRAGONFLY = {"(252,11)-Dragonfly": (252, 171332, 3),
+                   "(264,11)-Dragonfly": (264, 186516, 3)}
+REL = 1e-9  # float values across numpy builds; integers and edges are exact
+
+
+def _edges_sha(g) -> str:
+    import hashlib
+
+    return hashlib.sha256(json.dumps([[int(u), int(v)] for u, v in g.edges])
+                          .encode()).hexdigest()
+
+
+def _close(got: float, want: float) -> bool:
+    return abs(got - want) <= REL * abs(want)
+
+
+class _FirstShapes:
+    """Wraps ``bfs_sweep.sweep`` and ``bfs_sweep.patch_apply`` while phase 21
+    runs: each wrapper keeps a copy of the inputs of the first call at every
+    shape and calls the wrapped function.  The wrapped function counts its
+    launches through its module-level name, which is the wrapper while this
+    is installed: ``uninstall`` adds those counts back."""
+
+    def __init__(self):
+        from collections import Counter
+
+        from repro_torch.kernels import bfs_sweep as bs
+
+        self.bs = bs
+        self.orig = {"sweep": bs.sweep, "patch_apply": bs.patch_apply}
+        self.first = {"sweep": {}, "patch_apply": {}}
+        for name, fn in self.orig.items():
+            def wrapper(*args, _name=name, _fn=fn):
+                key = self._key(_name, args)
+                if key not in self.first[_name]:
+                    self.first[_name][key] = tuple(
+                        a.clone() if hasattr(a, "clone") else a for a in args)
+                return _fn(*args)
+
+            wrapper.launches, wrapper.shapes = 0, Counter()
+            setattr(bs, name, wrapper)
+
+    @staticmethod
+    def _key(name, args):
+        if name == "sweep":  # (b, sw_pad, n, kmax)
+            nb, _, F0, _ = args
+            return (nb.shape[0], F0.shape[2], nb.shape[1], nb.shape[2])
+        dist, _, crows = args  # (b, mmax, s, n)
+        return (dist.shape[0], crows.shape[1], dist.shape[1], dist.shape[2])
+
+    def uninstall(self) -> None:
+        for name, fn in self.orig.items():
+            wrapper = getattr(self.bs, name)
+            fn.launches += wrapper.launches
+            fn.shapes.update(wrapper.shapes)
+            setattr(self.bs, name, fn)
+
+
+def _time_sweep(bs, label: str, nb, vm, F0, sentinel: int) -> dict:
+    """One sweep shape: bit-exact against its plain version on the card,
+    then timed (CUDA events) beside its plain version and its bound."""
+    import torch
+
+    got = bs.sweep(nb, vm, F0, sentinel)
+    want = bs.sweep_rows_ref(nb, vm, F0, sentinel)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"bfs_sweep_kernel != sweep_rows_ref ({label})")
+    ms = cuda_ms(lambda: bs.sweep(nb, vm, F0, sentinel))
+    plain_ms = cuda_ms(lambda: bs.sweep_rows_ref(nb, vm, F0, sentinel), reps=3, n=1)
+    b, n, kmax = nb.shape
+    sw = F0.shape[2]
+    levels = [int(got[g][got[g] < sentinel].max()) + 1
+              if bool((got[g] < sentinel).any()) else 0 for g in range(b)]
+    nbytes = (nb.numel() + vm.numel() + F0.numel() + got.numel()) * 4
+    nops = sum(lv * n * kmax * sw * 2 for lv in levels)  # AND + OR per gather
+    bms, by, terms = bound(nbytes, [(nops, INT32_OPS_PER_S)])
+    plan = bs.sweep_plan(n, kmax)
+    log(f"    sweep {label}: b={b} n={n} kmax={kmax} sw_pad={sw} ({plan.graph} graph, "
+        f"{plan.threads} threads), levels {max(levels)}: bit-exact; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {bms:.5f} ms ({terms})")
+    return {"ms": ms, "bound_ms": bms}
+
+
+def _time_patch(bs, label: str, dist, tmp, crows) -> dict:
+    """One patch shape: bit-exact against its plain version on the card,
+    then timed beside its plain version and its bound."""
+    import torch
+
+    got = bs.patch_apply(dist, tmp, crows)
+    want = bs.patch_apply_ref(dist, tmp, crows)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"minplus_patch_kernel != patch_apply_ref ({label})")
+    ms = cuda_ms(lambda: bs.patch_apply(dist, tmp, crows))
+    plain_ms = cuda_ms(lambda: bs.patch_apply_ref(dist, tmp, crows), reps=3, n=1)
+    b, s, n = dist.shape
+    mmax = crows.shape[1]
+    nbytes = (2 * dist.numel() + tmp.numel() + crows.numel()) * 4
+    bms, by, terms = bound(nbytes, [(2 * b * s * n * mmax, INT32_OPS_PER_S)])
+    plan = bs.patch_plan(b, s, n, mmax, all(t.data_ptr() % 16 == 0 for t in (dist, tmp, crows)))
+    log(f"    patch {label}: b, s, n = {b}, {s}, {n} mmax={mmax} ({plan.kind}): bit-exact; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bms:.5f} ms ({terms})")
+    return {"ms": ms, "bound_ms": bms}
+
+
+def phase_suite256() -> dict:
+    """Table 4 and Fig 10 of the paper through ``repro_torch.api`` on the
+    card: ``run_experiment(paper_suite("256"), [stats, alltoall-64KB])``
+    (the four searched graphs built through both BFS kernels, ``stats``
+    through ``apsp`` on the card), every graph, integer and time held to the
+    JAX package's; Fig 10's eight workloads on (256,8)-Suboptimal; the
+    degree-11 dragonflies of Tables 5/6 through ``apsp`` on the card.  Then
+    the first call of every kernel shape the phase launched, held against
+    its plain version and timed, and Table 1's sweep shapes timed.  Returns
+    both BFS kernels' launches."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core import graphs, metrics
+
+    log('[21] the paper\'s 256-node suite: run_experiment(paper_suite("256"), '
+        '[stats, alltoall-64KB]) on the card')
+    t_phase = time.perf_counter()
+    build_s = {}
+    orig_build = api.build_topology
+
+    def timed_build(spec, **kw):
+        t = time.perf_counter()
+        g = orig_build(spec, **kw)
+        build_s[spec] = time.perf_counter() - t
+        return g
+
+    spent = {"evaluate_swap": 0.0, "evals": 0}
+    orig_eval = metrics.SymmetricAPSP.evaluate_swap
+
+    def timed_eval(ev, *a):
+        t = time.perf_counter()
+        out = orig_eval(ev, *a)
+        spent["evaluate_swap"] += time.perf_counter() - t
+        spent["evals"] += 1
+        return out
+
+    suite = api.paper_suite("256")
+    workloads = [("stats", {"bw_restarts": 8}),
+                 ("alltoall-64KB", "collective", {"op": "alltoall", "unit_bytes": 65536})]
+    _reset_search_counts()
+    shapes_seen = _FirstShapes()
+    api.build_topology = timed_build
+    metrics.SymmetricAPSP.evaluate_swap = timed_eval
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp = api.run_experiment(suite, workloads, device=DEV, parallel=False)
+        torch.cuda.synchronize()
+        t_exp = time.perf_counter() - t0
+        # Tables 5/6's dragonflies: degree 11, the sweep's global instantiation
+        dfly = api.paper_suite("large-dragonfly")
+        dfly_d = {}
+        t0 = time.perf_counter()
+        for name in LARGE_DRAGONFLY:
+            g = api.build_topology(dfly[name], device=DEV)
+            dfly_d[name] = (g, metrics.apsp(g, device=DEV))
+        t_dfly = time.perf_counter() - t0
+    finally:
+        api.build_topology = orig_build
+        metrics.SymmetricAPSP.evaluate_swap = orig_eval
+        shapes_seen.uninstall()
+    launches, shapes, patch_shapes = _search_counts()
+    t_builds = sum(build_s.values())
+    log(f"    run_experiment {t_exp:.2f} s on the host clock: builds {t_builds:.2f} s, "
+        f"cells {sum(sum(v.values()) for v in exp.seconds.values()):.2f} s; "
+        f"SymmetricAPSP.evaluate_swap {spent['evaluate_swap']:.2f} s over "
+        f"{spent['evals']} calls; launches {launches}")
+    log(f"    bfs_sweep_kernel launches by (b, sw_pad): {shapes}")
+    log(f"    minplus_patch_kernel launches by (b, mmax): {patch_shapes}")
+    check(launches["bfs_sweep_kernel"] > 0 and launches["minplus_patch_kernel"] > 0,
+          f"the 256-node suite did not launch both kernels: {launches}")
+
+    for name in exp.names:
+        g, st = exp.graphs[name], exp.values[name]["stats"]
+        sha, diam, mpl, bw, a2a = SUITE256[name]
+        got_a2a = exp.values[name]["alltoall-64KB"]
+        log(f"    {name}: build {build_s[suite[name]]:.2f} s, stats "
+            f"{exp.seconds[name]['stats']:.2f} s, alltoall {exp.seconds[name]['alltoall-64KB']:.2f} s "
+            f"(host); D={st.diameter:.0f} MPL={st.mpl!r} BW={st.bw} alltoall-64KB "
+            f"{got_a2a!r} s")
+        check(g.n == 256 and _edges_sha(g) == sha, f"{name}: edges differ from the reference's")
+        check((st.diameter, st.mpl, st.bw) == (diam, mpl, bw),
+              f"{name}: D, MPL, BW {(st.diameter, st.mpl, st.bw)}, the reference's "
+              f"{(diam, mpl, bw)}")
+        check(_close(got_a2a, a2a), f"{name}: alltoall {got_a2a!r}, the reference's {a2a!r}")
+    anchor = exp.values["(256,3)-Wagner"]["alltoall-64KB"] / \
+        exp.values["(256,8)-Suboptimal"]["alltoall-64KB"]
+    check(anchor >= 10.0, f"Fig 10 anchor: (256,8)-Suboptimal only {anchor:.2f}x Wagner")
+    log(f"    Fig 10 anchor: (256,8)-Suboptimal {anchor:.2f}x faster than (256,3)-Wagner "
+        f"on alltoall (>= 10); all ten graphs, D, MPL, BW equal the reference's, "
+        f"alltoall within {REL}")
+
+    g8 = exp.graphs["(256,8)-Suboptimal"]
+    t0 = time.perf_counter()
+    fig = api.run_experiment({"(256,8)-Suboptimal": g8},
+                             [(key, wl, params) for key, wl, params, _ in FIG10],
+                             device=DEV, parallel=False)
+    t_fig = time.perf_counter() - t0
+    for key, _, _, want in FIG10:
+        got = fig.values["(256,8)-Suboptimal"][key]
+        check(_close(got, want), f"Fig 10 {key}: {got!r}, the reference's {want!r}")
+    log(f"    Fig 10's eight workloads on (256,8)-Suboptimal in {t_fig:.2f} s (host): "
+        + ", ".join(f"{k} {fig.values['(256,8)-Suboptimal'][k]!r}" for k, *_ in FIG10)
+        + f"; each within {REL} of the reference's")
+
+    for name, (n, total, diam) in LARGE_DRAGONFLY.items():
+        g, d = dfly_d[name]
+        check(np.array_equal(d, metrics.apsp(g, device="cpu")),
+              f"{name}: apsp on the card differs from its plain version")
+        got = (g.n, int(d[~np.eye(g.n, dtype=bool)].sum()), int(d.max()))
+        check(got == (n, total, diam) and g.degree() == 11,
+              f"{name}: (n, total, diameter) {got}, pinned {(n, total, diam)}")
+    bs = shapes_seen.bs
+    log(f"    {', '.join(LARGE_DRAGONFLY)}: apsp on the card == plain == pinned totals and "
+        f"diameters; sweep plan {bs.sweep_plan(252, 11).graph} at kmax 11; "
+        f"{t_dfly:.2f} s (host)")
+
+    # the first call at every shape the phase launched: bit-exact, timed
+    rows = {"sweep": {}, "patch_apply": {}}
+    for key, args in sorted(shapes_seen.first["sweep"].items()):
+        rows["sweep"][key] = _time_sweep(bs, f"{key[:2]} first call (n={key[2]}, kmax={key[3]})",
+                                         *args)
+    for key, args in sorted(shapes_seen.first["patch_apply"].items()):
+        rows["patch_apply"][key] = _time_patch(bs, f"{key[:2]} first call", *args)
+    # Table 1's shapes (phase 19: one sweep of every source of each golden
+    # graph, n <= 36), timed here
+    dev = torch.device(DEV)
+    timed_t1 = set()
+    for name, fn, args, n, k, *_ in GOLDEN:
+        g = getattr(graphs, fn)(*args)
+        nb, vm, F0, sw_pad, _ = bs.pack_batch(metrics._nbr_table(g.adjacency())[None],
+                                              np.arange(n))
+        if (n, nb.shape[2], sw_pad) in timed_t1:
+            continue
+        timed_t1.add((n, nb.shape[2], sw_pad))
+        _time_sweep(bs, f"Table 1 {name}", *(bs.as_words(a, dev) for a in (nb, vm, F0)), n)
+    log(f"    phase 21 {time.perf_counter() - t_phase:.1f} s in all")
     return launches
 
 
@@ -1707,8 +2006,12 @@ def main() -> int:
     # and the whole-graph check of phase 7's graph (phase 20)
     invariants = [phase_table1(), phase_whole_graph(sym_res)]
     elapsed("19-20")
+    # and on the paper's 256-node suite (phase 21): its four searched builds
+    # and every graph's stats
+    invariants.append(phase_suite256())
+    elapsed("21")
     log(f"    launches on the invariants' paths: Table 1 {invariants[0]}, "
-        f"whole graph {invariants[1]}")
+        f"whole graph {invariants[1]}, 256-node suite {invariants[2]}")
     for run in invariants:
         launches = {name: launches[name] + run[name] for name in launches}
     log(f"    launches on the serving paths: zamba2 {served[0]}, qwen3 {served[1]}, "

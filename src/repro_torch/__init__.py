@@ -2,9 +2,10 @@
 model-zoo harness around it.
 
 The JAX package ``repro`` is the reference; this package mirrors its layout
-(``core``, ``core.engines``, ``kernels``, ``configs``, ``models``,
-``serve``, ``launch``).  Search results equal the reference's bit for bit;
-model outputs match within the reference's own test tolerances.  It imports ``torch`` and ``numpy`` only — never ``jax`` and nothing of
+(``api``, ``core``, ``core.engines``, ``comm``, ``kernels``, ``configs``,
+``models``, ``serve``, ``launch``).  Search results equal the reference's bit for bit;
+model outputs match within the reference's own test tolerances.  It
+imports ``torch`` and ``numpy`` only — never ``jax`` and nothing of
 ``repro`` — and keeps its own copies of the host helpers it needs.
 
 Every entry point takes an explicit ``device``.  ``None`` means the CUDA
@@ -40,9 +41,18 @@ Ported so far:
   (``kernels/csrc/ssd_scan.cu``).  ``convert.params_from_reference`` loads
   the JAX package's weights.
 
-The specs, topologies and api facade (``find_optimal``, ``graphs.build``),
-routing, simulation and collectives, the other model families, loss and
-training are not ported yet (ROADMAP.md).
+- the paper's simulated-cluster evidence (Tables 4-6, Figs 2-10) through
+  one facade, ``repro_torch.api`` (``run_experiment``, ``build_topology``,
+  ``search``, ``paper_suite``, the ``python -m repro_torch.api`` CLI): the
+  declarative specs and registries (``core.specs``, ``core.topologies``),
+  and on the host as in the reference the routing tiers
+  (``core.routing``), the collective schedules (``core.collectives``,
+  ``comm.schedules``), the traffic patterns and the benchmark models
+  (``core.traffic``, ``core.netsim``).  Searched graphs and ``stats`` price
+  on the device through the same BFS kernels.
+
+The device collectives, the layout and failure modules, the other model
+families, loss and training are not ported yet (ROADMAP.md).
 """
 from .core.certify import certify, verify_entry
 from .core.metrics import IncrementalAPSP, apsp, apsp_hops, bisection_width, girth, stats

@@ -17,18 +17,14 @@ answer.  ``verify_entry`` diffs a recorded entry against the recomputation.
 ``repro_torch.core.known_optimal`` loads its pinned warm starts from this
 table.
 
-One deliberate difference: an entry that carries only a ``spec`` is built
-as ``graphs.REGISTRY[family](**params)``; the reference builds it through
-``topologies.build_topology``, which the port does not have yet (ROADMAP
-Queue 1, item 6.7).  A spec outside that reach raises
-``NotImplementedError``; no entry of today's table does.
+An entry that carries only a ``spec`` is built through
+``topologies.build_topology``, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import hashlib
-import inspect
 import json
 import os
 from collections.abc import Iterable, Mapping
@@ -36,7 +32,7 @@ from typing import Any
 
 import numpy as np
 
-from .graphs import REGISTRY, Graph, circulant, from_edges
+from .graphs import Graph, circulant, from_edges
 
 __all__ = [
     "TABLE_PATH",
@@ -215,35 +211,12 @@ def build_entry_graph(entry: Mapping[str, Any]) -> Graph:
         return circulant(int(entry["n"]), [int(o) for o in entry["offsets"]],
                          name)
     if entry.get("spec") is not None:
-        return _build_spec(dict(entry["spec"])).with_name(name)
+        from . import topologies  # lazy: avoid import cycle via specs
+
+        return topologies.build_topology(
+            topologies.TopologySpec.from_json(dict(entry["spec"]))).with_name(name)
     raise ValueError(
         f"certified entry {name!r} has no build info (edges/offsets/spec)")
-
-
-# constructors that draw from a seed: their specs need the reference's
-# TopologySpec seed handling
-_SEEDED = ("random_regular", "random_hamiltonian_regular")
-
-
-def _build_spec(spec: dict[str, Any]) -> Graph:
-    """A spec entry's graph from the constructor registry: ``family`` names a
-    constructor of ``graphs.REGISTRY`` and ``params`` are its keyword
-    arguments.  Anything else needs ``topologies.build_topology``, which the
-    port does not have yet, and raises ``NotImplementedError``."""
-    family, params = spec.get("family"), dict(spec.get("params") or {})
-    fn = REGISTRY.get(family)
-    if fn is None or family in _SEEDED:
-        raise NotImplementedError(
-            f"certified spec family {family!r} needs topologies.build_topology, "
-            f"not ported yet (ROADMAP Queue 1, item 6.7)")
-    try:
-        inspect.signature(fn).bind(**params)
-    except TypeError:
-        raise NotImplementedError(
-            f"certified spec {spec!r} does not match graphs.{fn.__name__}'s "
-            f"arguments; it needs topologies.build_topology, not ported yet "
-            f"(ROADMAP Queue 1, item 6.7)") from None
-    return fn(**params)
 
 
 # legacy-friendly alias used by docs/examples

@@ -6,10 +6,10 @@ every constructor: ``ring``, ``complete``, ``circulant``, ``wagner``,
 ``bidiakis``, ``chvatal``, ``chvatal32``, ``petersen``, ``torus``,
 ``hypercube``, ``dragonfly``, ``random_regular``,
 ``random_hamiltonian_regular`` (the SA start), ``nested_compose`` and
-``cluster_hub``, with ``REGISTRY`` naming them.  The port imports nothing
-of ``repro``; the tests hold every constructor's edges equal to the
-original's.  The reference's ``build`` delegates to ``topologies``, which
-the port does not have yet (ROADMAP Queue 1, item 6.7).
+``cluster_hub``, with ``REGISTRY`` naming them, and the deprecated
+``build``, which delegates to ``topologies.build_topology``.  The port
+imports nothing of ``repro``; the tests hold every constructor's edges
+equal to the original's.
 """
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ __all__ = [
     "random_hamiltonian_regular",
     "nested_compose",
     "cluster_hub",
+    "build",
     "REGISTRY",
 ]
 
@@ -468,6 +469,26 @@ def cluster_hub(clusters: int, size: int, inner: str = "complete",
     g = nested_compose(_hub_part(outer, clusters), _hub_part(inner, size))
     return g.with_name(
         f"({g.n})-ClusterHub({clusters}x{size},{inner},{outer})")
+
+
+def build(spec: str, device=None, **kw) -> Graph:
+    """Deprecated shim: build a topology from a string spec.
+
+    Use ``repro_torch.api.build_topology`` (or ``core.topologies``) instead —
+    this delegates there, so the grammar (``ring:16``, ``torus:4x8``,
+    ``wagner:32``, ``circulant:32:1,7``, ``dragonfly:4,5,1``,
+    ``optimal:16,3``) and the resulting graphs are the reference's.
+    ``device`` is where a searched family prices.
+    """
+    import warnings
+
+    warnings.warn(
+        "graphs.build is deprecated: use repro_torch.api.build_topology (a "
+        "TopologySpec or the same 'family:args' string)",
+        DeprecationWarning, stacklevel=2)
+    from . import topologies  # lazy: topologies imports this module
+
+    return topologies.build_topology(spec, device, **kw)
 
 
 REGISTRY = {

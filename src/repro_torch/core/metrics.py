@@ -14,10 +14,11 @@ On the host, numpy copies of the reference's, unchanged: ``_nbr_table``,
 ``_removal_affected_nbr``, ``_bfs_rows``, ``IncrementalAPSP`` (the dense
 evaluator of ``sa_search``, its numpy path: the reference's C fast path has
 no counterpart), ``girth``, ``bisection_width`` (Kernighan–Lin from the
-reference's seeded starts), ``edge_betweenness_proxy`` and the Cerf et al.
-lower bounds.  The batched lost-parent removal test runs on the host,
-against each replica chain's mirrored distance rows and against the columns
-``SymmetricAPSP`` pulls from its device state, exactly as in the reference.
+reference's seeded starts), ``edge_betweenness_proxy`` (through
+``routing.RoutingTable``) and the Cerf et al. lower bounds.  The batched
+lost-parent removal test runs on the host, against each replica chain's
+mirrored distance rows and against the columns ``SymmetricAPSP`` pulls from
+its device state, exactly as in the reference.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from ..device import resolve_device
 from ..kernels import bfs_sweep
 from .engines.cuda_sweep import _check_int32_sums
 from .graphs import Graph
+from .routing import RoutingTable
 
 __all__ = [
     "apsp",
@@ -863,48 +865,13 @@ def _kernighan_lin(adj: np.ndarray, mask: np.ndarray, max_passes: int = 12) -> n
     return mask
 
 
-def _static_routes(g: Graph) -> np.ndarray:
-    """Next hop of the static shortest-path route u -> v (-1 if none): the
-    reference routing table's Floyd–Warshall, whose strict '<' breaks ties
-    towards the lowest intermediate vertex."""
-    n = g.n
-    dist = np.full((n, n), np.inf)
-    nxt = np.full((n, n), -1, dtype=np.int64)
-    np.fill_diagonal(dist, 0.0)
-    for u, v in g.edges:
-        dist[u, v] = dist[v, u] = 1.0
-        nxt[u, v] = v
-        nxt[v, u] = u
-    for k in range(n):
-        alt = dist[:, k, None] + dist[None, k, :]
-        better = alt < dist - 1e-12
-        if better.any():
-            dist = np.where(better, alt, dist)
-            nxt = np.where(better, nxt[:, k, None], nxt)
-    return nxt
-
-
 def edge_betweenness_proxy(g: Graph) -> dict[tuple[int, int], float]:
     """Cheap congestion proxy: number of shortest-path pairs through each
     directed link under single-shortest-path (lowest-next-hop) static
-    routing, one unit flow per ordered pair — the reference routing table's
+    routing, one unit flow per ordered pair — ``routing.RoutingTable``'s
     ``link_loads()``.  Routing-independent and used only for reporting (the
     reference's unused ``dist`` argument is dropped)."""
-    n = g.n
-    nxt = _static_routes(g)
-    loads: dict[tuple[int, int], float] = {}
-    for src in range(n):
-        for dst in range(n):
-            if src == dst:
-                continue
-            if nxt[src, dst] < 0:
-                raise ValueError(f"no route {src}->{dst}")
-            cur = src
-            while cur != dst:
-                hop = int(nxt[cur, dst])
-                loads[(cur, hop)] = loads.get((cur, hop), 0.0) + 1.0
-                cur = hop
-    return loads
+    return RoutingTable.build(g).link_loads()
 
 
 # --------------------------------------------------------------------------------
@@ -916,6 +883,12 @@ class GraphStats:
         self.name, self.n, self.k = name, n, k
         self.diameter, self.mpl, self.bw, self.girth = diameter, mpl, bw, girth
         self.d_lb, self.mpl_lb = d_lb, mpl_lb
+
+    def __repr__(self) -> str:
+        # The reference's GraphStats keeps object's default repr, and
+        # ExperimentResult.table() prints its first 12 characters in a
+        # cell; the same text here keeps the port's table equal to it.
+        return f"<repro.core.metrics.GraphStats object at {id(self):#x}>"
 
     def row(self) -> str:
         return (

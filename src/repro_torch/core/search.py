@@ -37,7 +37,8 @@ follows the reference's trajectory bit for bit and returns the same graph.
 ``_sa_chunk_py``, ``sa_search``, ``sa_objective_search``,
 ``_circulant_profile``, ``circulant_search``, ``_orbit``,
 ``_draw_orbit_swap``, ``_symmetric_random_start``, ``_circulant_orbits``
-and ``symmetric_sa_search`` are copies of the reference's.
+and ``symmetric_sa_search`` are copies of the reference's; the deprecated
+``find_optimal`` delegates to ``specs.search`` as the reference's does.
 """
 from __future__ import annotations
 
@@ -54,7 +55,8 @@ from .graphs import Graph, circulant, from_edges, random_hamiltonian_regular, ri
 from .known_optimal import KNOWN_CIRCULANT_OFFSETS
 
 __all__ = ["SearchResult", "sa_search", "exhaustive_search", "sa_objective_search",
-           "circulant_search", "large_search", "symmetric_sa_search", "KNOWN_OPTIMAL_MPL"]
+           "circulant_search", "large_search", "symmetric_sa_search", "KNOWN_OPTIMAL_MPL",
+           "find_optimal"]
 
 # Published MPL values for optimal graphs (paper TABLE 1/2) — used as search
 # targets and test ground truth.
@@ -1310,3 +1312,35 @@ def large_search(
             n, k, seed=seed, n_iter=n_polish, fold=fold, start_orbits=orbits,
             device=dev)
     return res_s if (res_s.mpl, res_s.diameter) < (res_c.mpl, res_c.diameter) else res_c
+
+
+def find_optimal(
+    n: int,
+    k: int,
+    seed: int = 0,
+    budget: int | None = None,
+    method: str | None = None,
+    replicas: int | None = None,
+    device=None,
+) -> Graph:
+    """Deprecated shim: the paper-facing driver, now a thin delegate to the
+    declarative ``specs.search`` dispatch.
+
+    method: 'exhaustive' | 'sa' | 'circulant' | 'symmetric' | 'large' |
+    None (auto).  The strategy registry reproduces every branch of the old
+    if-ladder byte-identically per seed (the auto policy lives in
+    ``specs.resolve_strategy``).  ``device`` is where a device tier prices:
+    ``None`` is the CUDA device, ``"cpu"`` the kernels' plain versions.
+    """
+    import warnings
+
+    warnings.warn(
+        "find_optimal is deprecated: use repro_torch.api.search(SearchSpec(n, "
+        "k, strategy=..., budget=..., seed=...)) — auto strategy reproduces "
+        "find_optimal's tier policy exactly",
+        DeprecationWarning, stacklevel=2)
+    from . import specs  # lazy: specs imports this module
+
+    return specs.search(specs.SearchSpec(
+        n=n, k=k, seed=seed, budget=budget, strategy=method or "auto",
+        replicas=replicas), device).graph

@@ -3,8 +3,8 @@
 the JAX package's, on the CPU.
 
 The table is a byte-equal copy; every entry's graph must rebuild to the
-reference's edges (spec entries through the port's constructor registry,
-where the reference goes through ``topologies``), and ``certify`` /
+reference's edges (spec entries through ``topologies.build_topology``, as
+in the reference), and ``certify`` /
 ``verify_entry`` must return the reference's values on the paper's
 <= 36-node entries and the circulants with n <= 512.
 """
@@ -92,12 +92,16 @@ def test_corrupted_build_info_breaks_the_hash():
     {"family": "chvatal", "params": {"n": 32}},
     {"family": "ring", "params": {"n": 16, "max_tries": 3}},
 ])
-def test_specs_beyond_the_registry_are_refused(spec):
+def test_spec_entries_build_through_the_topologies_registry(spec):
+    """Spec entries beyond the constructors' own arguments (a searched
+    family, a seeded one, a parsed variant, an extra param) build through
+    ``topologies.build_topology`` to the reference's graph."""
     entry = {"name": "x", "n": 16, "k": 4, "edges_hash": "sha256:0", "spec": spec}
-    with pytest.raises(NotImplementedError, match="item 6.7"):
-        certify.build_entry_graph(entry)
-    [msg] = certify.verify_entry(entry)
-    assert "graph rebuild failed" in msg and "item 6.7" in msg
+    got = certify.build_entry_graph(entry)
+    want = ref_certify.build_entry_graph(entry)
+    assert (got.n, got.edges, got.name) == (want.n, want.edges, want.name)
+    assert certify.verify_entry(entry, full=False) == \
+        ref_certify.verify_entry(entry, full=False)
 
 
 def test_warm_start_and_entry_lookup_equal_reference():

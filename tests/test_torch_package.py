@@ -44,7 +44,10 @@ def test_port_imports_neither_jax_nor_repro():
 
 def test_importing_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.convert, "
-            "repro_torch.core.search, repro_torch.kernels._build, "
+            "repro_torch.core.search, repro_torch.api, repro_torch.comm.schedules, "
+            "repro_torch.core.netsim, repro_torch.core.topologies, "
+            "repro_torch.core.hamiltonian, repro_torch.core.traffic, "
+            "repro_torch.kernels._build, "
             "repro_torch.kernels.ops, repro_torch.configs, repro_torch.models, "
             "repro_torch.serve, repro_torch.launch.serve; "
             "print(sorted(m for m in sys.modules "
