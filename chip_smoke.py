@@ -116,11 +116,35 @@ Phases, in order; any failure raises and exits non-zero:
     its plain version and pinned totals; host seconds per build and cell;
     both kernels' launches by shape, the first call at each shape held
     against its plain version bit for bit and timed beside its bound, and
-    Table 1's sweep shapes timed.
+    Table 1's sweep shapes timed;
+22. the paper's step 4: ``optimize_layout`` of phase 21's
+    (256,8)-Suboptimal graph under 16x16 mesh traffic (seed 0, 20000
+    iterations; host seconds) and ``plan_elastic_remesh`` of the pinned
+    (8192, 8) circulant after 64 failures (``layout_iters=4000``), each
+    equal to the JAX package's plan; the 8128 survivors swept by
+    ``apsp`` on the card, the first call held bit-exact against its plain
+    version and timed, the copy home apart; a fleet-size survivor graph
+    with an isolated vertex through ``apsp`` (an all-pad row, sentinel
+    rows) against its plain version; the disconnected fallbacks on
+    ``ring(256)`` (two components; an isolated survivor) against pins;
+23. the collectives of ``repro_torch.comm.torchcoll``: each on 25 MiB CUDA
+    tensors over NCCL at world size 1 (one GPU), through
+    ``run_on_axis(..., backend="nccl")``, returning its input exactly, and
+    a gloo group refusing the CUDA tensor; then 8 gloo ranks on the host, 25 MiB of float32 a
+    rank: ring and recursive-doubling allreduce within 1e-5 of the plain
+    sum, the ring in the Hamiltonian order of ``torus([2, 4])``,
+    ``int8_ring_allreduce`` within a relative 0.05, ``flood_bcast`` from
+    roots 0 and 5 on ``wagner(8)`` exact, each timed; the round counts;
+24. ``benchmarks/torch_run.py --only table1,fig4,fig_routing,table2_3,table5_6``
+    on the card: each module's rows (names and derived strings) equal to
+    the JAX package's, fig4's and fig_routing's values within 1e-9, Table
+    1 equal to the paper's D, MPL and BW; seconds per module.  Phases
+    22-24 run under ``torch.profiler``: the card's busy share of them
+    (phase 23's NCCL rank, a process of its own, apart).
 
 It prints one ``{"kernels": [...]}`` JSON line (per kernel: launches on the
-main paths (the BFS kernels: phases 5, 7, 19, 20 and 21; the model kernels:
-phases 13, 15 and 17),
+main paths (the BFS kernels: phases 5, 7, 19, 20, 21, 22, 23 and 24; the
+model kernels: phases 13, 15 and 17),
 the largest difference from the plain version, kernel, plain and library
 times from CUDA events around a run of calls, and the least time the card
 could take), then the
@@ -130,6 +154,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -747,27 +772,45 @@ def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
     return launches
 
 
-def profile_run(fn, label: str, top: int = 6) -> None:
+def profile_run(fn, label: str, top: int = 6) -> tuple[float, float]:
     """Device time of one run by kernel (torch.profiler), against its wall
-    time: how much of the run keeps the card busy."""
+    time: how much of the run keeps the card busy.  Returns the device's
+    busy seconds and the wall seconds."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t_start = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    t_stop = time.perf_counter()
+    # the trace's events are parsed and grouped with the cyclic collector
+    # off: its full passes over this long-lived process's heap are not the
+    # profiler's work
+    gc_on = gc.isenabled()
+    gc.disable()
+    try:
+        n_events = len(prof.events())
+        t_parse = time.perf_counter()
+        averages = prof.key_averages()
+    finally:
+        if gc_on:
+            gc.enable()
     # device-side events only (kernels, copies, memsets), as torch's own
     # table totals them, so no time is counted twice
     rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
+                   for e in averages
                    if e.device_type == DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)), reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     log(f"    profiled {label}: device busy {busy:.3f} s of "
-        f"{wall:.2f} s wall ({100 * busy / wall:.1f}%); top device time:")
+        f"{wall:.2f} s wall ({100 * busy / wall:.1f}%); the profiler's own start "
+        f"{t0 - t_start:.2f} s, stop {t_stop - t0 - wall:.2f} s, {n_events} events "
+        f"parsed {t_parse - t_stop:.2f} s, grouped {time.perf_counter() - t_parse:.2f} s; "
+        f"top device time:")
     for us, count, key in rows[:top]:
         log(f"      {us / 1e3:10.2f} ms  x{count:<5d} {key[:72]}")
     # each hand-written kernel by name, in the top rows or not
@@ -775,6 +818,7 @@ def profile_run(fn, label: str, top: int = 6) -> None:
         hit = [(us, count) for us, count, key in rows if re.search(rf"\b{name}\b", key)]
         log(f"      {sum(h[0] for h in hit) / 1e3:10.2f} ms  x{sum(h[1] for h in hit):<5d} "
             f"{name} (all instantiations)")
+    return busy, wall
 
 
 def phase_card_vs_cpu() -> None:
@@ -1222,7 +1266,7 @@ def phase_suite256() -> dict:
     degree-11 dragonflies of Tables 5/6 through ``apsp`` on the card.  Then
     the first call of every kernel shape the phase launched, held against
     its plain version and timed, and Table 1's sweep shapes timed.  Returns
-    both BFS kernels' launches."""
+    both BFS kernels' launches and the (256,8)-Suboptimal graph."""
     import torch
 
     from repro_torch import api
@@ -1351,6 +1395,357 @@ def phase_suite256() -> dict:
         timed_t1.add((n, nb.shape[2], sw_pad))
         _time_sweep(bs, f"Table 1 {name}", *(bs.as_words(a, dev) for a in (nb, vm, F0)), n)
     log(f"    phase 21 {time.perf_counter() - t_phase:.1f} s in all")
+    return launches, g8
+
+
+# Step 4 of the paper's evidence (phase 22), as the JAX package computes it
+# on a CPU: optimize_layout of (256,8)-Suboptimal under 16x16 mesh traffic
+# (axis bytes 1, 8; seed 0, 20000 iterations): sha256 of the perm (JSON list),
+# cost and identity cost
+LAYOUT256 = ("3c5ce30fc002aaf75180a754689ecda6d11bcf736e087c4035bb267beacf5305",
+             7974.0, 11632.0)
+# plan_elastic_remesh (axis bytes 1, 8; seed 0, 4000 layout iterations):
+# dead nodes, mesh shape, sha256 of the device order (JSON list), layout cost.
+# The fleet row: the pinned (8192, 8) circulant with 64 nodes drawn dead by
+# default_rng(0); the reference's own apsp (a dense matmul per BFS level)
+# does not finish at this size, so its pin comes from the JAX package's
+# plan_elastic_remesh, unchanged, over an equal distance matrix built from
+# its apsp_hops.  The ring rows: two components (vertex 0's is kept) and an
+# isolated survivor (11).
+REMESH_FLEET = ((64, 64), "961f36819915fa2f2fa2a4dc4d647472e8935c631ce2f2a0a8058d7323abd8a7",
+                433028.0)
+REMESH_RING256 = (
+    ((0, 128), (8, 8), "5d2483ff4d4ffc3236188e0a882e3f07bc900288ff9aa7629a0d89b5d8bb46f0",
+     9796.0),
+    ((10, 12), (16, 8), "b55cb55dd3ec12d4f8fb83d3729b5063be5504360a6ef68669f1811eef680a1e",
+     47012.0),
+)
+
+
+def _ints_sha(values) -> str:
+    import hashlib
+
+    return hashlib.sha256(json.dumps([int(v) for v in values]).encode()).hexdigest()
+
+
+def phase_layout_remesh(g8) -> dict:
+    """The paper's step 4 on the card: ``optimize_layout`` of phase 21's
+    (256,8)-Suboptimal graph and ``plan_elastic_remesh`` of the pinned
+    (8192, 8) circulant after 64 failures, their ``apsp`` on the card (the
+    survivors' sweep held bit-exact against its plain version and timed, the
+    copy home apart), each plan equal to the JAX package's; a fleet-size
+    survivor graph with an isolated vertex through ``apsp`` (sentinel
+    rows); the disconnected fallbacks on ``ring(256)``.  Returns both BFS
+    kernels' launches."""
+    import torch
+
+    from repro_torch.core import graphs, layout, metrics
+    from repro_torch.core.known_optimal import KNOWN_CIRCULANT_OFFSETS
+    from repro_torch.runtime import plan_elastic_remesh, surviving_subgraph
+
+    log("[22] the paper's step 4: optimize_layout and plan_elastic_remesh, apsp on the card")
+    t_phase = time.perf_counter()
+    _reset_search_counts()
+    t0 = time.perf_counter()
+    res = layout.optimize_layout(g8, layout.mesh_traffic((16, 16), (1.0, 8.0)), seed=0,
+                                 device=DEV)
+    t_layout = time.perf_counter() - t0
+    got = (_ints_sha(res.perm), res.cost, res.identity_cost)
+    check(got == LAYOUT256, f"optimize_layout of {g8.name}: {got}, the reference's {LAYOUT256}")
+    log(f"    optimize_layout({g8.name}, 16x16 mesh, seed 0, {res.iterations} iterations): "
+        f"cost {float(res.cost)!r} from {float(res.identity_cost)!r}, improvement "
+        f"{res.improvement:.4f}, {t_layout:.2f} s (host; one apsp on the card); perm and "
+        f"costs equal the reference's")
+
+    n = 8192
+    g = graphs.circulant(n, KNOWN_CIRCULANT_OFFSETS[(n, 8)])
+    dead = sorted(np.random.default_rng(0).choice(n, 64, replace=False).tolist())
+    spent = {"apsp": 0.0, "calls": 0}
+    orig_apsp = metrics.apsp
+
+    def timed_apsp(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_apsp(*a, **kw)
+        spent["apsp"] += time.perf_counter() - t
+        spent["calls"] += 1
+        return out
+
+    shapes_seen = _FirstShapes()
+    metrics.apsp = timed_apsp
+    try:
+        t0 = time.perf_counter()
+        plan = plan_elastic_remesh(g, dead, axis_bytes=(1.0, 8.0), layout_iters=4000,
+                                   device=DEV)
+        t_plan = time.perf_counter() - t0
+        metrics.apsp = orig_apsp
+        got = (plan.mesh_shape, _ints_sha(plan.device_order), plan.layout_cost)
+        check(got == REMESH_FLEET and plan.dropped == dead and plan.connected,
+              f"plan_elastic_remesh at {n}: {got}, the reference's {REMESH_FLEET}")
+        log(f"    plan_elastic_remesh(circulant({n}, 8), 64 dead, 4000 iterations): mesh "
+            f"{plan.mesh_shape}, layout cost {float(plan.layout_cost)!r}, improvement "
+            f"{plan.layout_improvement:.4f}; {t_plan:.2f} s (host clock), {spent['apsp']:.2f} "
+            f"s of it in {spent['calls']} apsp calls on the card; plan equals the reference's")
+
+        # an isolated survivor at fleet size: an all-pad table row, sentinel rows
+        iso = 100
+        sub, _ = surviving_subgraph(g, sorted(np.nonzero(g.adjacency()[iso])[0].tolist()))
+        d = metrics.apsp(sub, device=DEV)
+        check(np.array_equal(d, metrics.apsp(sub, device="cpu")),
+              "apsp of the isolated-survivor graph differs from its plain version")
+        check(int(np.isinf(d).sum()) == 2 * (sub.n - 1) and not metrics.is_connected(sub, d),
+              "the isolated survivor is not unreachable")
+        log(f"    apsp of circulant({n}, 8) minus vertex {iso}'s 8 neighbours (n={sub.n}, "
+            f"one all-pad row) on the card == plain; {2 * (sub.n - 1)} unreachable pairs")
+
+        for dead_ring, shape, sha, cost in REMESH_RING256:
+            t0 = time.perf_counter()
+            plan = plan_elastic_remesh(graphs.ring(256), list(dead_ring), device=DEV)
+            got = (plan.mesh_shape, _ints_sha(plan.device_order), plan.layout_cost)
+            check(got == (shape, sha, cost),
+                  f"plan_elastic_remesh(ring(256), {dead_ring}): {got}, the reference's")
+            log(f"    plan_elastic_remesh(ring(256), dead {list(dead_ring)}): vertex 0's "
+                f"component, mesh {plan.mesh_shape}, cost {float(plan.layout_cost)!r}, "
+                f"{len(plan.dropped)} dropped, {time.perf_counter() - t0:.2f} s; equal to "
+                f"the reference's")
+    finally:
+        metrics.apsp = orig_apsp
+        shapes_seen.uninstall()
+    # the timing below launches outside the path: count the path up to here
+    launches, shapes, _ = _search_counts()
+    bs = shapes_seen.bs
+    for key, args in sorted(shapes_seen.first["sweep"].items()):
+        _time_sweep(bs, f"{key[:2]} first call (n={key[2]}, kmax={key[3]})", *args)
+        if key[2] < 8000:
+            continue
+        out = bs.sweep(*args)
+        copies = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.cpu()
+            copies.append((time.perf_counter() - t0) * 1e3)
+        log(f"    copy home of {out.numel() * 4} B {float(np.median(copies)):.2f} ms "
+            f"(host clock, median of 3)")
+    log(f"    bfs_sweep_kernel launches by (b, sw_pad): {shapes}; "
+        f"phase 22 {time.perf_counter() - t_phase:.1f} s in all")
+    check(launches["bfs_sweep_kernel"] > 0, f"phase 22 launched no sweep: {launches}")
+    return launches
+
+
+# phase 23's gloo payload: PyTorch DDP's default bucket, 25 MiB of float32
+GLOO_RANKS = 8
+GLOO_FLOATS = 25 * 2 ** 20 // 4
+GLOO_CHECKS = ("ring", "recursive_doubling", "ring_hamiltonian", "int8_ring", "flood_root0",
+               "flood_root5")
+
+
+def _gloo_collectives(seed, group=None):
+    """One rank of phase 23's gloo group: every rank draws the same
+    (ranks, GLOO_FLOATS) payload from ``seed`` and takes its own row; each
+    collective is timed between barriers and held against the plain sum (or
+    the root's row).  Returns errors then seconds, one per ``GLOO_CHECKS``."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.comm import torchcoll as tc
+    from repro_torch.core import graphs
+    from repro_torch.core.hamiltonian import hamiltonian_cycle
+
+    rank = dist.get_rank(group)
+    full = np.random.default_rng(int(seed)).standard_normal((GLOO_RANKS, GLOO_FLOATS),
+                                                            dtype=np.float32)
+    x = torch.from_numpy(full[rank].copy())
+    want = full.sum(0, dtype=np.float64)
+    order = hamiltonian_cycle(graphs.torus([2, 4]))
+    calls = (functools.partial(tc.ring_allreduce),
+             functools.partial(tc.recursive_doubling_allreduce),
+             functools.partial(tc.ring_allreduce, order=order),
+             functools.partial(tc.int8_ring_allreduce),
+             functools.partial(tc.flood_bcast, g=graphs.wagner(8), root=0),
+             functools.partial(tc.flood_bcast, g=graphs.wagner(8), root=5))
+    errs, secs = [], []
+    for name, fn in zip(GLOO_CHECKS, calls):
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        out = fn(x, group)
+        dist.barrier(group)
+        secs.append(time.perf_counter() - t0)
+        assert out.device == x.device and out.dtype == x.dtype, name
+        got = out.numpy().astype(np.float64)
+        if name.startswith("flood"):
+            errs.append(float(np.abs(got - full[int(name[-1])]).max()))
+        elif name == "int8_ring":
+            errs.append(float(np.abs(got - want).max() / np.abs(want).max()))
+        else:
+            errs.append(float(np.abs(got - want).max()))
+    return torch.tensor(errs + secs, dtype=torch.float64)
+
+
+# phase 23's NCCL rank at world size 1: each collective on a 25 MiB float32
+# CUDA tensor (and ring_allreduce on a 0-d one)
+NCCL_CASES = ("ring_allreduce", "ring_allreduce 0-d", "ring_reduce_scatter", "ring_allgather",
+              "recursive_doubling_allreduce", "int8_ring_allreduce", "flood_bcast")
+NCCL_MS = [0.0]  # the NCCL rank's milliseconds in its calls, read by main
+
+
+def _nccl_world_one(seed, group=None):
+    """Phase 23's one NCCL rank, which ``run_on_axis(..., backend="nccl")``
+    puts on CUDA device 0: every ``NCCL_CASES`` call on CUDA tensors drawn
+    from ``seed``, timed on the host clock between synchronizations; then a
+    gloo group of the same world, handed the CUDA tensor.  Returns 1.0 for
+    each call that returned its input exactly on the card and 1.0 if the
+    gloo group refused the tensor, then each call's milliseconds."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.comm import torchcoll as tc
+    from repro_torch.core import graphs
+
+    gen = torch.Generator(device=seed.device).manual_seed(int(seed))
+    x = torch.randn(GLOO_FLOATS, device=seed.device, generator=gen)
+    x0 = torch.randn((), device=seed.device, generator=gen)
+    one = graphs.from_edges(1, [], "one")
+    calls = ((lambda: tc.ring_allreduce(x, group), x),
+             (lambda: tc.ring_allreduce(x0, group), x0),
+             (lambda: tc.ring_reduce_scatter(x, group), x),
+             (lambda: tc.ring_allgather(x, group), x),
+             (lambda: tc.recursive_doubling_allreduce(x, group), x),
+             (lambda: tc.int8_ring_allreduce(x, group), x),
+             (lambda: tc.flood_bcast(x, group, g=one), x))
+    same, ms = [], []
+    for fn, want in calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        same.append(float(out.device == want.device and torch.equal(out, want)))
+    # gloo moves host memory: a CUDA tensor is refused, not moved
+    gloo = dist.new_group(backend="gloo")
+    try:
+        tc.ring_allreduce(x, group=gloo)
+        same.append(0.0)
+    except ValueError:
+        same.append(1.0)
+    return torch.tensor(same + ms, dtype=torch.float64)
+
+
+def phase_collectives() -> dict:
+    """The Hamiltonian-ring collectives (``repro_torch.comm.torchcoll``):
+    every function on CUDA tensors over NCCL at world size 1, through
+    ``run_on_axis(..., backend="nccl")`` (one GPU, and NCCL holds one rank a
+    device: each returns its input, moving no bytes), then an 8-rank gloo
+    group on the host with a 25 MiB float32 payload a rank, each call timed
+    and held to the plain sum; the schedules' round counts against the
+    eccentricity from ``apsp`` on the card.  Returns both BFS kernels'
+    launches."""
+    from repro_torch.comm import torchcoll as tc
+    from repro_torch.core import collectives as C
+    from repro_torch.core import graphs, metrics
+
+    log("[23] the collectives: NCCL at world size 1 on the card, 8 gloo ranks on the host")
+    t_phase = time.perf_counter()
+    _reset_search_counts()
+    t0 = time.perf_counter()
+    res = tc.run_on_axis(_nccl_world_one, 1, np.full(1, 23), backend="nccl").numpy()[0]
+    t_nccl = time.perf_counter() - t0
+    same, ms = res[:len(NCCL_CASES) + 1], res[len(NCCL_CASES) + 1:]
+    NCCL_MS[:] = [float(ms.sum())]
+    for name, good in zip(NCCL_CASES, same):
+        check(good == 1.0, f"{name} at NCCL world size 1 does not return its input on the card")
+    check(same[-1] == 1.0, "a gloo group took a CUDA tensor")
+    log(f"    NCCL world size 1 through run_on_axis ({t_nccl:.1f} s with the spawn), "
+        f"{GLOO_FLOATS * 4} B CUDA tensors, each returned exactly on the card: "
+        + ", ".join(f"{name} {t:.3f} ms" for name, t in zip(NCCL_CASES, ms))
+        + "; a gloo group refuses the CUDA tensor")
+
+    t0 = time.perf_counter()
+    res = tc.run_on_axis(_gloo_collectives, GLOO_RANKS, np.full(GLOO_RANKS, 23)).numpy()
+    t_group = time.perf_counter() - t0
+    errs, secs = res[:, :len(GLOO_CHECKS)].max(0), res[:, len(GLOO_CHECKS):].max(0)
+    limits = (1e-5, 1e-5, 1e-5, 0.05, 0.0, 0.0)
+    for name, err, sec, lim in zip(GLOO_CHECKS, errs, secs, limits):
+        check(err <= lim, f"gloo {name}: error {err!r} above {lim}")
+    log(f"    {GLOO_RANKS} gloo ranks, {GLOO_FLOATS * 4} B float32 a rank ({t_group:.1f} s "
+        f"with the spawn): " + ", ".join(f"{name} {sec:.3f} s (error {err:.3g} <= {lim})"
+                                         for name, err, sec, lim
+                                         in zip(GLOO_CHECKS, errs, secs, limits)))
+    g = graphs.wagner(8)
+    rounds = (len(C.bcast_flood(8, 1.0, g, root=0).rounds),
+              int(metrics.eccentricities(g, device=DEV)[0]),
+              len(C.allreduce_ring(8, 1024.0).rounds))
+    check(rounds[0] == rounds[1] and rounds[2] == 2 * (8 - 1),
+          f"round counts {rounds}: flood rounds != eccentricity or ring != 14")
+    log(f"    round counts: wagner(8) flood {rounds[0]} == eccentricity of root 0; ring "
+        f"allreduce {rounds[2]} == 2(n-1); phase 23 {time.perf_counter() - t_phase:.1f} s")
+    return _search_counts()[0]
+
+
+# phase 24: the JAX package's table and figure modules on a CPU
+# (benchmarks/table1_graph_properties.py, fig4_collectives.py, fig_routing.py,
+# table2_3_dragonfly.py, table5_6_large_dragonfly.py): rows, sha256 of the
+# JSON list of [name, derived] pairs; the fsum of fig4's values and of
+# fig_routing's static and adaptive seconds (Tables 2/3 and 5/6 carry every
+# value in their derived strings, their row numbers are host seconds or 0)
+SCRIPT_ROWS = {
+    "table1": (13, "42f1cf9d9dc0730c7f738003491925317cad3623f9bb6bba3ddc6c2b3134f050", None),
+    "fig4": (208, "ebdd9be5de2c5c96a9519aa226ae8a07949375dbbdd06825f023ea0735584509",
+             736.005724615572),
+    "fig_routing": (17, "c47b93df2686ef348d1fe8bcb99c58ce9740639f662af3055cf63598e7656575",
+                    3.3456889995654673),
+    "table2_3": (18, "25600cf23d3f0d7a3d0b6d8f8fbca4f9819ea569db2d718134931cb16d3960fe", None),
+    "table5_6": (10, "cb4a2fc75c24fee4d00e74eb594040f61dcd92110a214bb2c42ada7de9292acd", None),
+}
+
+
+def phase_paper_scripts() -> dict:
+    """The paper's table and figure modules over ``repro_torch.api`` on the card:
+    ``benchmarks/torch_run.py --only table1,fig4,fig_routing,table2_3,table5_6``,
+    each module's rows equal to the JAX package's, Table 1 equal to the
+    paper's D, MPL and BW.  Returns both BFS kernels' launches."""
+    import contextlib
+    import hashlib
+    import io
+    import math
+
+    from benchmarks import torch_run
+
+    only = ",".join(SCRIPT_ROWS)
+    log(f"[24] the paper's table and figure modules: benchmarks/torch_run.py --only {only} "
+        "on the card")
+    _reset_search_counts()
+    csv = io.StringIO()
+    with contextlib.redirect_stdout(csv):
+        out = torch_run.main(["--only", only])
+    launches, shapes, _ = _search_counts()
+    for key, (count, sha, total) in SCRIPT_ROWS.items():
+        rows, secs = out[key]
+        got = hashlib.sha256(json.dumps([[n, d] for n, _, d in rows.rows])
+                             .encode()).hexdigest()
+        check(len(rows.rows) == count and got == sha,
+              f"{key}: {len(rows.rows)} rows, sha {got}; the reference's {count}, {sha}")
+        fsum = None
+        if key == "fig4":
+            fsum = math.fsum(r["seconds"] for r in rows.results)
+        elif key == "fig_routing":
+            fsum = math.fsum(r["static_s"] + r["adaptive_s"] for r in rows.results)
+            check(next(r for r in rows.results if r["key"] == "torus_alltoall")
+                  ["adaptive_vs_static"] > 1, "fig_routing: adaptive does not beat static")
+        elif key == "table1":
+            check(all("match=Y" in d for _, _, d in rows.rows),
+                  "table1: a row differs from the paper's D, MPL or BW")
+        check(fsum is None or _close(fsum, total), f"{key}: values sum {fsum!r}, "
+              f"the reference's {total!r}")
+        log(f"    {key}: {len(rows.rows)} rows in {secs:.2f} s (host clock), names and "
+            f"derived strings equal the reference's"
+            + ("; every D, MPL, BW equal the paper's" if key == "table1" else
+               f"; values sum {fsum!r} within {REL}" if fsum is not None else ""))
+    log(f"    {len(csv.getvalue().splitlines())} CSV lines under results/torch_benchmarks/; "
+        f"bfs_sweep_kernel launches by (b, sw_pad): {shapes}")
+    check(launches["bfs_sweep_kernel"] > 0, f"the modules' stats launched no sweep: {launches}")
     return launches
 
 
@@ -2008,10 +2403,24 @@ def main() -> int:
     elapsed("19-20")
     # and on the paper's 256-node suite (phase 21): its four searched builds
     # and every graph's stats
-    invariants.append(phase_suite256())
+    suite, g8 = phase_suite256()
+    invariants.append(suite)
     elapsed("21")
+    # the paper's step 4 (phase 22: the layout and the remesh, apsp on the
+    # card), its collectives (phase 23: one apsp for the round counts) and
+    # its table and figure modules (phase 24: Table 1's stats)
+    step4 = []
+    busy, wall = profile_run(lambda: step4.extend(
+        [phase_layout_remesh(g8), phase_collectives(), phase_paper_scripts()]), "phases 22-24")
+    invariants += step4
+    log(f"    phases 22-24: the card idle {100 * (1 - busy / wall):.2f}% of {wall:.1f} s "
+        f"(torch.profiler, this process; phase 23's NCCL rank, a process of its own, "
+        f"spent {NCCL_MS[0]:.2f} ms in its calls on its host clock, outside the trace)")
+    elapsed("22-24")
     log(f"    launches on the invariants' paths: Table 1 {invariants[0]}, "
-        f"whole graph {invariants[1]}, 256-node suite {invariants[2]}")
+        f"whole graph {invariants[1]}, 256-node suite {invariants[2]}, "
+        f"layout and remesh {invariants[3]}, collectives {invariants[4]}, "
+        f"tables and figures {invariants[5]}")
     for run in invariants:
         launches = {name: launches[name] + run[name] for name in launches}
     log(f"    launches on the serving paths: zamba2 {served[0]}, qwen3 {served[1]}, "

@@ -3,7 +3,7 @@ model-zoo harness around it.
 
 The JAX package ``repro`` is the reference; this package mirrors its layout
 (``api``, ``core``, ``core.engines``, ``comm``, ``kernels``, ``configs``,
-``models``, ``serve``, ``launch``).  Search results equal the reference's bit for bit;
+``models``, ``serve``, ``launch``, ``runtime``).  Search results equal the reference's bit for bit;
 model outputs match within the reference's own test tolerances.  It
 imports ``torch`` and ``numpy`` only — never ``jax`` and nothing of
 ``repro`` — and keeps its own copies of the host helpers it needs.
@@ -49,10 +49,15 @@ Ported so far:
   (``core.routing``), the collective schedules (``core.collectives``,
   ``comm.schedules``), the traffic patterns and the benchmark models
   (``core.traffic``, ``core.netsim``).  Searched graphs and ``stats`` price
-  on the device through the same BFS kernels.
+  on the device through the same BFS kernels;
+- the paper's step 4: the topology-aware layout (``core.layout``, the
+  annealer on the host over ``apsp`` on the device), the elastic remesh
+  after failures (``runtime``) and the Hamiltonian-ring collectives over
+  ``torch.distributed`` (``comm.torchcoll``); the paper's table and figure
+  scripts are ``benchmarks/torch_*.py`` (``benchmarks/torch_run.py``).
 
-The device collectives, the layout and failure modules, the other model
-families, loss and training are not ported yet (ROADMAP.md).
+The other model families, loss and training are not ported yet
+(ROADMAP.md).
 """
 from .core.certify import certify, verify_entry
 from .core.metrics import IncrementalAPSP, apsp, apsp_hops, bisection_width, girth, stats

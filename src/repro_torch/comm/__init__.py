@@ -1,3 +1,5 @@
 """Communication schedules.  ``schedules`` synthesizes and prices
-per-topology collectives on the host; the reference's device collectives
-(``comm.jaxcoll``) are not ported yet (ROADMAP Queue 1, item 7)."""
+per-topology collectives on the host; ``torchcoll`` runs the reference's
+device collectives (``repro.comm.jaxcoll``: ring, recursive-doubling and
+int8 allreduce, flood broadcast) over ``torch.distributed``
+point-to-point transfers."""

@@ -9,9 +9,8 @@ explicit: every collective is compiled to a ``Schedule`` — a list of rounds of
 point-to-point ``Transfer``s between *ranks* — and the schedule is then costed
 on a concrete ``Graph`` + ``RoutingTable`` with an α–β link model and per-link
 contention.  This is exactly the mechanism by which topology (MPL, diameter,
-bisection) enters collective performance in the paper.  Executing the same
-schedules on devices (the reference's ``comm.jaxcoll``) is not ported yet
-(ROADMAP Queue 1, item 7).
+bisection) enters collective performance in the paper.  The same
+schedules run over ``torch.distributed`` in ``repro_torch.comm.torchcoll``.
 
 Cost model (paper §4.2 + SimGrid setup of §4.4.2):
     round_time = max over transfers  (T0 + α·hops(src,dst))        [latency]

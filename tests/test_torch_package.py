@@ -37,6 +37,10 @@ def _imported_roots(path):
 def test_port_imports_neither_jax_nor_repro():
     files = _port_files()
     assert len(files) >= 12
+    names = {os.path.relpath(p, REPO) for p in files}
+    assert {"src/repro_torch/core/layout.py", "src/repro_torch/runtime/failures.py",
+            "src/repro_torch/comm/torchcoll.py", "benchmarks/torch_common.py",
+            "benchmarks/torch_run.py"} <= names
     bad = {(os.path.relpath(p, REPO), mod) for p in files
            for mod in _imported_roots(p) if mod in ("jax", "jaxlib", "repro")}
     assert not bad, f"forbidden imports: {sorted(bad)}"
@@ -49,12 +53,14 @@ def test_importing_port_loads_neither_jax_nor_repro():
             "repro_torch.core.hamiltonian, repro_torch.core.traffic, "
             "repro_torch.kernels._build, "
             "repro_torch.kernels.ops, repro_torch.configs, repro_torch.models, "
-            "repro_torch.serve, repro_torch.launch.serve; "
+            "repro_torch.serve, repro_torch.launch.serve, repro_torch.core.layout, "
+            "repro_torch.runtime, repro_torch.comm.torchcoll, benchmarks.torch_run; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120,
-                          env={**os.environ, "PYTHONPATH": os.path.join(REPO, "src")})
+                          env={**os.environ,
+                               "PYTHONPATH": os.pathsep.join([os.path.join(REPO, "src"), REPO])})
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
 
