@@ -63,7 +63,14 @@ Phases, in order; any failure raises and exits non-zero:
     fp32, at head dims 16, 64, 112 and 128 in both dtypes, non-causal, on a
     ragged 19-row tile, with keys ending inside a tile, and at hd 128 with
     GQA 64/8 in fp32; both serving shapes timed, with
-    ``scaled_dot_product_attention`` beside the kernel as a yardstick;
+    ``scaled_dot_product_attention`` beside the kernel as a yardstick; and
+    the same for the model zoo's other prefills (grok-1-314b: b=4, h=48,
+    kv=8, s=1024, hd=128; kimi-k2-1t-a32b: h=64, kv=8, hd=112; qwen2-vl-2b:
+    h=12, kv=2, s=1088, hd=128; whisper-tiny: h=kv=6, hd=64, its encoder
+    non-causal at s=1500, its decoder at s=4, its cross-attention 4 queries
+    against 1500 keys), and 300 launches back to back of each mask at
+    qwen2-vl's s=1088, where a warpgroup of the last query tile has no
+    rows;
 12. the wgmma fragment layouts of ``ssd_intra_chunk_kernel`` (bf16), then
     the kernel and ``ssd_intra_chunk_fp32_kernel`` against their plain
     version at the serving shapes (b*h=320, s=1024, p=64, chunk 256, bf16
@@ -140,11 +147,35 @@ Phases, in order; any failure raises and exits non-zero:
     the JAX package's, fig4's and fig_routing's values within 1e-9, Table
     1 equal to the paper's D, MPL and BW; seconds per module.  Phases
     22-24 run under ``torch.profiler``: the card's busy share of them
-    (phase 23's NCCL rank, a process of its own, apart).
+    (phase 23's NCCL rank, a process of its own, apart);
+25. phase 13 for grok-1-314b (moe, 8 experts x fe 32768, top-2) at full
+    width, depth 6 of 64 (58.0 GiB of bf16 weights, each expert drawn on
+    its own): 6 attention launches per prefill; the prefill's profile puts
+    the MoE FFN's routing, dispatch, expert GEMMs and combine apart, and
+    the decode step's bound (every weight read once) is logged;
+26. the same for kimi-k2-1t-a32b (384 experts x fe 2048, top-8, a shared
+    expert, hd 112) at depth 2 of 61 (68.0 GiB): 2 launches per prefill;
+27. qwen2-vl-2b (vlm, M-RoPE) at full width and depth through
+    ``Model.prefill``/``decode_step``: 8 requests in 2 waves of 4, each
+    1024 seeded patch embeddings and 64 text tokens, (3, 4, 1088)
+    positions (the image on a 32x32 grid, t = 0, h = row, w = col; the text
+    at 32 + i on all three streams), 32 greedy tokens; 28 launches per
+    prefill; then one text-only wave of 4 through ``ServingEngine``;
+28. whisper-tiny (encdec) at full width and depth through
+    ``Model.prefill``/``decode_step``: 8 requests of 1500 seeded frames
+    and 4-token prompts, 64 greedy tokens (max_seq 128), in 2 waves of 4;
+    12 launches per prefill (4 encoder at s = 1500, 4 decoder, 4 cross);
+29. card == CPU in float32 with the same weights for qwen2-vl-2b at depth
+    2 (images and distinct streams), whisper-tiny at full depth (frames)
+    and kimi-k2-1t-a32b at depth 1 with its experts cut to 16 (top-8, the
+    shared expert and hd 112 kept), each teacher-forced layer by layer
+    (their attention logits reach a std of 60-130 under the reference's
+    init, and a free float32 run of whisper-tiny ends O(1) apart; the free
+    runs are logged), kimi's routing on both devices equal.
 
 It prints one ``{"kernels": [...]}`` JSON line (per kernel: launches on the
 main paths (the BFS kernels: phases 5, 7, 19, 20, 21, 22, 23 and 24; the
-model kernels: phases 13, 15 and 17),
+model kernels: phases 13, 15, 17 and 25-28),
 the largest difference from the plain version, kernel, plain and library
 times from CUDA events around a run of calls, and the least time the card
 could take), then the
@@ -772,20 +803,37 @@ def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
     return launches
 
 
-def profile_run(fn, label: str, top: int = 6) -> tuple[float, float]:
+def profile_run(fn, label: str, top: int = 6, ranges: dict | None = None
+                ) -> tuple[float, float]:
     """Device time of one run by kernel (torch.profiler), against its wall
-    time: how much of the run keeps the card busy.  Returns the device's
-    busy seconds and the wall seconds."""
+    time: how much of the run keeps the card busy.  ``ranges`` maps a label
+    to a (module, function name): each such function runs inside a
+    ``record_function`` range of that label for the run, and the device
+    time of the kernels it launched is reported.  Returns the device's busy
+    seconds and the wall seconds."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    def ranged(name, f):
+        def wrapped(*a, **kw):
+            with record_function(name):
+                return f(*a, **kw)
+        return wrapped
+
+    saved = {name: (mod, attr, getattr(mod, attr)) for name, (mod, attr) in (ranges or {}).items()}
     t_start = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    try:
+        for name, (mod, attr, f) in saved.items():
+            setattr(mod, attr, ranged(name, f))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for mod, attr, f in saved.values():
+            setattr(mod, attr, f)
     t_stop = time.perf_counter()
     # the trace's events are parsed and grouped with the cyclic collector
     # off: its full passes over this long-lived process's heap are not the
@@ -818,6 +866,10 @@ def profile_run(fn, label: str, top: int = 6) -> tuple[float, float]:
         hit = [(us, count) for us, count, key in rows if re.search(rf"\b{name}\b", key)]
         log(f"      {sum(h[0] for h in hit) / 1e3:10.2f} ms  x{sum(h[1] for h in hit):<5d} "
             f"{name} (all instantiations)")
+    # the device time of the kernels launched inside each range
+    for e in averages:
+        if e.key in saved and e.device_type == DeviceType.CPU:
+            log(f"      {e.device_time_total / 1e3:10.2f} ms  x{e.count:<5d} in {e.key}")
     return busy, wall
 
 
@@ -1911,12 +1963,26 @@ def _attn_pairs(sq: int, skv: int, q_offset: int, causal: bool) -> int:
     return sum(min(skv, q_offset + i + 1) for i in range(sq))
 
 
+# the attention shapes of the moe, vlm and encdec serving prefills (phases
+# 25-28): (label, b, h, kv, sq, skv, hd, causal), bf16
+MODEL_ZOO_ATTN = (
+    ("grok-1-314b", 4, 48, 8, 1024, 1024, 128, True),
+    ("kimi-k2-1t-a32b", 4, 64, 8, 1024, 1024, 112, True),
+    ("qwen2-vl-2b", 4, 12, 2, 1088, 1088, 128, True),
+    ("whisper-tiny encoder", 4, 6, 6, 1500, 1500, 64, False),
+    ("whisper-tiny decoder", 4, 6, 6, 4, 4, 64, True),
+    ("whisper-tiny cross-attention", 4, 6, 6, 4, 1500, 64, False),
+)
+
+
 def phase_flash(serving=((4, 32, 32, 1024, 80), (4, 64, 8, 1024, 128))) -> dict:
     """flash_attention_kernel (bf16) and flash_attention_fp32_kernel against
     their plain version on the card, after a check of the wgmma fragment
     layouts the bf16 kernel rests on; then timed at each serving prefill's
-    shape (b, h, kv, s, hd): zamba2-2.7b's and qwen3-32b's.  The kernels
-    line takes the last (the dense prefill launches it most)."""
+    shape (b, h, kv, s, hd): zamba2-2.7b's and qwen3-32b's, and the model
+    zoo's other families' (``MODEL_ZOO_ATTN``: GQA 6:1, hd 112, a 1500-key
+    ragged non-causal tail, 4 queries against 1500 keys).  The kernels line
+    takes qwen3-32b's (the dense prefill launches it most)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -1962,6 +2028,8 @@ def phase_flash(serving=((4, 32, 32, 1024, 80), (4, 64, 8, 1024, 128))) -> dict:
     # q_offset case whose keys end inside a 128-key tile; hd 128 with the
     # dense family's GQA 64/8 in fp32 (the card-vs-CPU phase's kernel)
     cases = [(b, h, kv, s, s, hd, 0, b16, True) for b, h, kv, s, hd in serving]
+    cases += [(b, h, kv, sq, skv, hd, 0, b16, causal)
+              for _, b, h, kv, sq, skv, hd, causal in MODEL_ZOO_ATTN]
     h, hd = serving[0][1], serving[0][4]
     cases += [(2, h, 8, 200, 328, hd, 128, b16, True),
               (2, h, 8, 200, 328, hd, 128, f32, True),
@@ -1990,33 +2058,54 @@ def phase_flash(serving=((4, 32, 32, 1024, 80), (4, 64, 8, 1024, 128))) -> dict:
         log(f"[11] flash b={b_} h={h_} kv={kv_} sq={sq} skv={skv} hd={hd_} q_offset={off} "
             f"{str(dtype)[6:]} causal={causal}: max abs err {err:.3g} (tol {tol[dtype]})")
         del q, k, v, got, want
+    # a warpgroup past the sequence's end (sq % 128 in 1..64: qwen2-vl's
+    # 1088) in work tiles that are not its block's last, 300 launches back
+    # to back of each mask: a lagging warp there once deadlocked the block
+    for causal in (True, False):
+        q, k, v = qkv(4, 12, 2, 1088, 1088, 128, b16)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        for _ in range(300):
+            got = fa.flash_attention_fwd(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        check(err <= tol[b16], f"flash_attention_kernel != plain after 300 launches at "
+              f"sq=skv=1088 causal={causal}: {err}")
+        log(f"[11] flash b=4 h=12 kv=2 sq=skv=1088 hd=128 bfloat16 causal={causal}, 300 "
+            f"launches back to back: max abs err {err:.3g} (tol {tol[b16]})")
+        errs.append(err)
+        del q, k, v, got, want
+    for label, b, h, kv, sq, skv, hd, causal in MODEL_ZOO_ATTN:
+        log(f"    {label}:")
+        flash_timed(rnd, b, h, kv, sq, skv, hd, causal)
     for b, h, kv, s, hd in serving:
-        row = flash_timed(rnd, b, h, kv, s, hd)
+        row = flash_timed(rnd, b, h, kv, s, s, hd)
     return {"name": "flash_attention_kernel", "route": "cuda", "source": FLASH_SOURCE,
             "replaces": "src/repro/kernels/flash_attention.py:38", "max_abs_err": max(errs),
             **row}
 
 
-def flash_timed(rnd, b: int, h: int, kv: int, s: int, hd: int) -> dict:
+def flash_timed(rnd, b: int, h: int, kv: int, sq: int, skv: int, hd: int,
+                causal: bool = True) -> dict:
     """The bf16 kernel, its plain version and SDPA (GQA by ``enable_gqa``)
     at one serving prefill's shape, on the main path's layout: (b, h, s, hd)
-    views of (b, s, h, hd) tensors; the bound from its causal FLOPs and
-    bytes."""
+    views of (b, s, h, hd) tensors; the bound from its FLOPs (the causal
+    part only, where causal) and bytes."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
-    q = rnd(b, s, h, hd).to(torch.bfloat16).transpose(1, 2)
-    k, v = (rnd(b, s, kv, hd).to(torch.bfloat16).transpose(1, 2) for _ in range(2))
-    ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), reps=3, n=1)
+    q = rnd(b, sq, h, hd).to(torch.bfloat16).transpose(1, 2)
+    k, v = (rnd(b, skv, kv, hd).to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+    ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal), reps=3, n=1)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=hd ** -0.5, enable_gqa=kv != h))
-    flops = 4 * b * h * _attn_pairs(s, s, 0, True) * hd  # q k^T and p v
-    nbytes = 2 * b * s * hd * (2 * h + 2 * kv)  # q, k, v read, o written, bf16
+        q, k, v, is_causal=causal, scale=hd ** -0.5, enable_gqa=kv != h))
+    flops = 4 * b * h * _attn_pairs(sq, skv, 0, causal) * hd  # q k^T and p v
+    nbytes = 2 * b * hd * (2 * sq * h + 2 * skv * kv)  # q, k, v read, o written, bf16
     bms, by, terms = bound(nbytes, [(flops, BF16_FLOP_PER_S)])
-    log(f"    serving shape b={b} h={h} kv={kv} s={s} hd={hd}: kernel {ms:.4f} ms "
+    s = f"s={sq}" if sq == skv else f"sq={sq} skv={skv}"
+    log(f"    serving shape b={b} h={h} kv={kv} {s} hd={hd} causal={causal}: kernel {ms:.4f} ms "
         f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
         f"scaled_dot_product_attention {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s), "
         f"bound {bms:.4f} ms ({terms}; {flops / 1e9:.2f} GFLOP at "
@@ -2169,13 +2258,15 @@ def _model_counts() -> dict:
 
 
 def launches_per_prefill(cfg) -> dict:
-    """Model kernel launches one prefill makes: an attention per dense layer
-    or per application of the hybrid's shared block, an SSD per Mamba2
+    """Model kernel launches one prefill makes: an attention per dense, moe
+    or vlm layer, per application of the hybrid's shared block, per encoder
+    layer and two per decoder layer (self and cross); an SSD per Mamba2
     layer."""
-    attn = {"dense": cfg.n_layers, "ssm": 0,
-            "hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1)}[cfg.family]
+    attn = {"dense": cfg.n_layers, "moe": cfg.n_layers, "vlm": cfg.n_layers, "ssm": 0,
+            "hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1),
+            "encdec": cfg.enc_layers + 2 * cfg.n_layers}[cfg.family]
     return {"flash_attention_kernel": attn,
-            "ssd_intra_chunk_kernel": 0 if cfg.family == "dense" else cfg.n_layers}
+            "ssd_intra_chunk_kernel": cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0}
 
 
 def _tensor_bytes(tensors) -> int:
@@ -2193,21 +2284,42 @@ def free_device() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_serve(arch: str, phase: int, slots: int = 4, requests: int = 8,
-                prompt_len: int = 1024, max_new: int = 32, max_seq: int = 1088,
-                activations_gib: float = 6.0) -> dict:
-    """The serving path of ``arch`` at full width and depth, bf16: the
-    kernels' launches, TTFT, decode latency, throughput and peak memory,
-    which must stay within ``activations_gib`` of the weights and the
-    caches; then a profile of one prefill and of 4 decode steps."""
-    import torch
+def _model_cfg(arch: str, depth: int | None = None, **change):
+    """``arch``'s config at full width, cut to ``depth`` layers if given."""
+    import dataclasses
 
     from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if depth is not None:
+        change["n_layers"] = depth
+    return dataclasses.replace(cfg, **change)
+
+
+def _moe_ranges() -> dict:
+    """The MoE FFN's stages, for ``profile_run``'s ranges."""
+    from repro_torch.models import moe
+
+    return {"moe routing": (moe, "_route"), "moe dispatch": (moe, "_dispatch"),
+            "moe expert GEMMs": (moe, "_experts"), "moe combine": (moe, "_combine")}
+
+
+def phase_serve(arch: str, phase: int, slots: int = 4, requests: int = 8,
+                prompt_len: int = 1024, max_new: int = 32, max_seq: int = 1088,
+                activations_gib: float = 6.0, depth: int | None = None) -> dict:
+    """The serving path of ``arch`` at full width and depth (or ``depth``
+    layers), bf16: the kernels' launches, TTFT, decode latency, throughput
+    and peak memory, which must stay within ``activations_gib`` of the
+    weights and the caches; then a profile of one prefill (an MoE FFN's
+    routing, dispatch, expert GEMMs and combine apart) and of 4 decode
+    steps."""
+    import torch
+
     from repro_torch.models import build_model
     from repro_torch.serve import DecodeParams, Request, ServingEngine
 
     free_device()
-    cfg = get_config(arch)
+    cfg = _model_cfg(arch, depth)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg)  # the CUDA device: no device argument
@@ -2215,7 +2327,8 @@ def phase_serve(arch: str, phase: int, slots: int = 4, requests: int = 8,
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in params.parameters())
     weights = _tensor_bytes(params.parameters())
-    log(f"[{phase}] {arch}: {n_params / 1e9:.3f} B parameters ({cfg.dtype}, "
+    cut = "" if depth is None else f" at depth {cfg.n_layers}"
+    log(f"[{phase}] {arch}{cut}: {n_params / 1e9:.3f} B parameters ({cfg.dtype}, "
         f"{weights / 2**30:.2f} GiB) made on {model.device} in "
         f"{time.perf_counter() - t0:.2f} s; peak while drawing them "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2275,12 +2388,15 @@ def phase_serve(arch: str, phase: int, slots: int = 4, requests: int = 8,
     check(peak - weights - caches <= activations_gib * 2**30,
           f"peak device memory {peak / 2**30:.2f} GiB exceeds the weights and caches by more "
           f"than {activations_gib} GiB")
-    log(f"    first tokens: {[r.out_tokens[:4] for r in done[:2]]}")
+    log(f"    first tokens: {[r.out_tokens[:4] for r in done[:2]]}; a decode step reads "
+        f"every weight: {weights / HBM_BYTES_PER_S * 1e3:.2f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s is its bound")
 
     toks = np.stack(prompts[:slots])
     eng.cache = None
     profile_run(lambda: model.prefill(params, {"tokens": toks}, max_seq),
-                f"one prefill ({slots} x {prompt_len} tokens)", top=10)
+                f"one prefill ({slots} x {prompt_len} tokens)", top=10,
+                ranges=_moe_ranges() if cfg.moe is not None else None)
     _, cache = model.prefill(params, {"tokens": toks}, max_seq)
     step = np.zeros((slots, 1), np.int32)
     profile_run(lambda: [model.decode_step(params, step, cache) for _ in range(4)],
@@ -2288,29 +2404,210 @@ def phase_serve(arch: str, phase: int, slots: int = 4, requests: int = 8,
     return launches
 
 
+def mrope_positions(b: int, img: int, txt: int) -> np.ndarray:
+    """(3, b, img + txt) M-RoPE positions: the image on a side x side grid
+    (t = 0, h = row, w = col), then the text at side + i on all three
+    streams."""
+    side = int(round(img ** 0.5))
+    if side * side != img:
+        raise ValueError(f"{img} image tokens are not a square grid")
+    i = np.arange(img)
+    grid = np.stack([np.zeros(img), i // side, i % side])
+    text = np.broadcast_to(side + np.arange(txt), (3, txt))
+    return np.broadcast_to(np.concatenate([grid, text], axis=1)[:, None],
+                           (3, b, img + txt)).astype(np.int32)
+
+
+def model_batch(cfg, rng, b: int, prompt_len: int) -> dict:
+    """A seeded prefill batch of ``b`` prompts: tokens; for vlm also
+    ``img_tokens`` image embeddings (before the text) and their M-RoPE
+    positions; for encdec ``enc_seq`` frames."""
+    batch = {"tokens": rng.integers(0, cfg.vocab, size=(b, prompt_len)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["img_embeds"] = rng.standard_normal((b, cfg.img_tokens, cfg.d_model),
+                                                  dtype=np.float32)
+        batch["positions"] = mrope_positions(b, cfg.img_tokens, prompt_len)
+    elif cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((b, cfg.enc_seq, cfg.d_model), dtype=np.float32)
+    return batch
+
+
+def phase_generate(arch: str, phase: int, slots: int = 4, requests: int = 8,
+                   prompt_len: int = 64, max_new: int = 32, max_seq: int = 1152,
+                   activations_gib: float = 6.0) -> dict:
+    """The vlm or encdec path of ``arch`` at full width and depth, bf16,
+    through ``Model.prefill``/``decode_step`` (the engine passes only tokens
+    to prefill, as the reference's does, so it takes no images or frames):
+    ``requests`` prompts in waves of ``slots``, each wave prefilled with its
+    seeded images and M-RoPE positions (vlm) or frames (encdec), then
+    ``max_new`` greedy tokens a lane, each copied home and fed back as the
+    engine does.  The kernels' launches, TTFT, decode latency, throughput
+    and peak memory against the weights and the caches, then a profile of
+    one prefill."""
+    import torch
+
+    from repro_torch.models import build_model
+
+    free_device()
+    cfg = _model_cfg(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)  # the CUDA device: no device argument
+    params = model.init(0)
+    torch.cuda.synchronize()
+    weights = _tensor_bytes(params.parameters())
+    log(f"[{phase}] {arch}: {sum(t.numel() for t in params.parameters()) / 1e9:.3f} B "
+        f"parameters ({cfg.dtype}, {weights / 2**30:.2f} GiB) made on {model.device} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    waves = [model_batch(cfg, rng, slots, prompt_len) for _ in range(-(-requests // slots))]
+
+    def greedy(batch, steps):
+        logits, cache = model.prefill(params, batch, max_seq)
+        out = [logits[:, -1, :cfg.vocab].float().argmax(-1).to(torch.int32).cpu().numpy()]
+        t_first = time.perf_counter()
+        finite = bool(torch.isfinite(logits[..., :cfg.vocab].float()).all())
+        for _ in range(steps - 1):
+            logits, cache = model.decode_step(params, out[-1][:, None], cache)
+            out.append(logits[:, -1, :cfg.vocab].float().argmax(-1).to(torch.int32)
+                       .cpu().numpy())
+        return np.stack(out, 1), t_first, finite, cache
+
+    greedy(waves[0], 2)  # warm-up
+    torch.cuda.synchronize()
+    _reset_model_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ttft, decode_ms, tokens, finite = [], [], [], []
+    t_start = time.perf_counter()
+    for batch in waves:
+        t0 = time.perf_counter()
+        toks, t_first, fin, cache = greedy(batch, max_new)
+        t_done = time.perf_counter()
+        ttft.append(t_first - t0)
+        decode_ms.append((t_done - t_first) / (max_new - 1) * 1e3)
+        tokens.append(toks)
+        finite.append(fin)
+    wall = time.perf_counter() - t_start
+    launches = _model_counts()
+    peak = torch.cuda.max_memory_allocated()
+    caches = _tensor_bytes(cache.values())
+    want = {k: len(waves) * v for k, v in launches_per_prefill(cfg).items()}
+    check(launches == want, f"model kernel launches {launches}, expected {want}")
+    check(all(finite), f"prefill logits not finite: {finite}")
+    check(all(((0 <= t) & (t < cfg.vocab)).all() and t.shape == (slots, max_new)
+              for t in tokens), "a sampled token is outside the vocab, or one is missing")
+    extra = {k: v.shape for k, v in waves[0].items() if k != "tokens"}
+    log(f"    {requests} requests in {len(waves)} waves of {slots}, {prompt_len}-token prompts "
+        f"with {extra}, {max_new} greedy tokens each, in {wall:.3f} s: TTFT mean "
+        f"{np.mean(ttft) * 1e3:.1f} ms (a wave's prefill and first token), decode "
+        f"{np.mean(decode_ms):.2f} ms/token per lane ({slots} lanes), throughput "
+        f"{requests * max_new / wall:.2f} tok/s; peak device memory {peak / 2**30:.2f} GiB "
+        f"(weights {weights / 2**30:.2f} GiB, a wave's caches {caches / 2**30:.3f} GiB); "
+        f"launches {launches}; first tokens {tokens[0][:2, :4].tolist()}")
+    check(peak - weights - caches <= activations_gib * 2**30,
+          f"peak device memory {peak / 2**30:.2f} GiB exceeds the weights and caches by more "
+          f"than {activations_gib} GiB")
+    profile_run(lambda: model.prefill(params, waves[0], max_seq),
+                f"one prefill ({slots} prompts, {extra})", top=10)
+    return launches
+
+
+class _TeacherForcing:
+    """Layer by layer, the card against the CPU: the CPU's run records each
+    layer call's input and outputs; the card's run feeds every layer call
+    the CPU's input to the same call in place of its own and holds each of
+    its outputs to the CPU's within ``tol`` of that output's largest
+    magnitude (fp32 products of width d_model differ by their summation
+    order in proportion to the row's norm, not to each element)."""
+
+    def __init__(self, tol: float):
+        from repro_torch.models import encdec, transformer
+
+        self.fns = [(transformer, "dense_layer"), (transformer, "dense_layer_decode"),
+                    (encdec, "_enc_layer"), (encdec, "_dec_layer"),
+                    (encdec, "_dec_layer_decode")]
+        self.tol = tol
+        self.calls: list = []
+        self.worst = 0.0
+        self.bad: list = []
+
+    @staticmethod
+    def _flat(out) -> list:
+        return [t for o in (out if isinstance(out, tuple) else (out,))
+                for t in (_TeacherForcing._flat(o) if isinstance(o, tuple) else (o,))]
+
+    def run(self, mode: str, fn):
+        """``fn()`` with the layer functions recording ("cpu") or forced
+        ("card")."""
+        saved = [(mod, name, getattr(mod, name)) for mod, name in self.fns]
+        it = iter(self.calls)
+
+        import torch
+
+        def wrap(name, f):
+            def layer(p, x, *a, **kw):
+                if mode == "cpu":
+                    out = f(p, x, *a, **kw)
+                    self.calls.append((name, x.clone(), [t.clone() for t in self._flat(out)]))
+                    return out
+                rec_name, x_cpu, outs_cpu = next(it)
+                check(rec_name == name, f"layer calls differ: {rec_name} on the CPU, {name}")
+                out = f(p, x_cpu.to(x.device), *a, **kw)
+                for got, want in zip(self._flat(out), outs_cpu):
+                    want = want.float()
+                    rel = float((got.float().cpu() - want).abs().max() / want.abs().max())
+                    self.worst = max(self.worst, rel)
+                    if not rel <= self.tol:
+                        self.bad.append((name, len(self.bad), rel))
+                return out
+            return layer
+
+        try:
+            for mod, name, f in saved:
+                setattr(mod, name, wrap(name, f))
+            return fn()
+        finally:
+            for mod, name, f in saved:
+                setattr(mod, name, f)
+
+
 def phase_model_card_vs_cpu(arch: str, phase: int, depth: int, prompt_len: int = 128,
-                            requests: int = 2, max_new: int = 8) -> None:
-    """``arch`` at full width and depth ``depth``, float32, on the card and on
-    the CPU with the same weights: prefill and decode logits within a stated
-    tolerance, and the same greedy tokens."""
+                            requests: int = 2, max_new: int = 8, forced: bool = False,
+                            **change) -> None:
+    """``arch`` at full width and depth ``depth`` (its config otherwise
+    changed by ``change``), float32, on the card and on the CPU with the
+    same weights: prefill and decode logits within a stated tolerance, and
+    the same greedy tokens.  A vlm batch carries seeded image embeddings
+    with distinct M-RoPE streams, an encdec batch seeded frames.
+
+    With ``forced``, the card's checked run is teacher-forced layer by layer
+    (``_TeacherForcing``), each layer's outputs held to the CPU's: the
+    model zoo's families without qk-norm have attention logits of std
+    ~60-130 at full width under the reference's init (``wq``/``wk`` take
+    their fan-in from the head count), where a near tie between keys can
+    turn a float32 rounding difference into a visible one; through
+    whisper-tiny's 4 encoder layers over 1500 frames one layer multiplies a
+    difference in its input by ~16, so two correct float32 runs end O(1)
+    apart.  The free-running card's distance from the CPU is logged beside
+    it, unchecked.  An MoE config's routing (every
+    token's top-k expert ids) is recorded on both devices in the checked
+    runs: a flip is reported, and fails the phase."""
     import copy
-    import dataclasses
 
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, moe
 
     free_device()
     torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 products on the card
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(arch), n_layers=depth, dtype="float32")
+    cfg = _model_cfg(arch, depth, dtype="float32", **change)
     cpu = build_model(cfg, device="cpu")
     card = build_model(cfg, device=DEV)
     p_card = card.init(0)
     p_cpu = copy.deepcopy(p_card).to("cpu")  # the same weights, drawn once on the card
-    toks = np.random.default_rng(1).integers(0, cfg.vocab, size=(requests, prompt_len))
-    max_seq = prompt_len + max_new
+    batch = model_batch(cfg, np.random.default_rng(1), requests, prompt_len)
+    max_seq = cfg.img_tokens + prompt_len + max_new
     # prefill logits: fp32 products summed in other orders; decode steps of
     # a model with a conv state: that state is cached in bf16 after the
     # prefill (as in the reference), so a value near a rounding boundary may
@@ -2318,44 +2615,85 @@ def phase_model_card_vs_cpu(arch: str, phase: int, depth: int, prompt_len: int =
     # every later step; a dense model's KV cache stays fp32
     tol_prefill = 2e-3
     tol_decode = 1e-2 if cfg.ssm is not None else tol_prefill
-    worst = []
-    t_cpu = t_card = 0.0
-    outs = {}
-    for name, model, params in (("cpu", cpu, p_cpu), ("card", card, p_card)):
+    forcing = _TeacherForcing(tol_prefill) if forced else None
+    routes: dict = {}
+    route = moe._route
+
+    def recorded_route(label):
+        def f(xf, router, m):
+            out = route(xf, router, m)
+            routes.setdefault(label, []).append(out[2].cpu())
+            return out
+        return f
+
+    def run(name, model, params, feed=None):
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": toks}, max_seq)
+        logits, cache = model.prefill(params, batch, max_seq)
         steps = [logits.float().cpu()]
-        tok = steps[0][:, -1, :cfg.vocab].argmax(-1, keepdim=True)
-        greedy = [tok]
-        for _ in range(max_new - 1):
-            # both devices are fed the CPU's greedy tokens, so their logits
-            # stay comparable even if a token differed
-            feed = outs["cpu"][1][len(greedy) - 1] if name == "card" else tok
-            logits, cache = model.decode_step(params, feed.numpy(), cache)
+        greedy = [steps[0][:, -1, :cfg.vocab].argmax(-1, keepdim=True)]
+        for i in range(max_new - 1):
+            # the card is fed the CPU's greedy tokens, so the two devices'
+            # logits stay comparable even if a token differed
+            tok = feed[i] if feed is not None else greedy[-1]
+            logits, cache = model.decode_step(params, tok.numpy(), cache)
             steps.append(logits.float().cpu())
-            tok = steps[-1][:, -1, :cfg.vocab].argmax(-1, keepdim=True)
-            greedy.append(tok)
-        if name == "card":
+            greedy.append(steps[-1][:, -1, :cfg.vocab].argmax(-1, keepdim=True))
+        if name != "cpu":
             torch.cuda.synchronize()
-            t_card = time.perf_counter() - t0
-        else:
-            t_cpu = time.perf_counter() - t0
-        outs[name] = (steps, greedy)
-    for i, (a, c) in enumerate(zip(outs["cpu"][0], outs["card"][0])):
+        return steps, greedy, time.perf_counter() - t0
+
+    def diffs(a, c):
+        return [float((x - y).abs().max()) for x, y in zip(a, c)]
+
+    moe._route = recorded_route("cpu")
+    try:
+        ref = (forcing.run("cpu", lambda: run("cpu", cpu, p_cpu)) if forced
+               else run("cpu", cpu, p_cpu))
+        if forced:
+            moe._route = route
+            free = run("card, free", card, p_card, feed=ref[1])
+            same = all(torch.equal(a, c) for a, c in zip(ref[1], free[1]))
+            log(f"    free-running card against the CPU (logged, not checked): logits max abs "
+                f"diff per step {[float(f'{e:.3g}') for e in diffs(ref[0], free[0])]}, greedy "
+                f"tokens {'equal' if same else 'differ'}")
+        moe._route = recorded_route("card")
+        out = (forcing.run("card", lambda: run("card", card, p_card, feed=ref[1])) if forced
+               else run("card", card, p_card, feed=ref[1]))
+    finally:
+        moe._route = route
+    if cfg.moe is not None:
+        flips = [(i, int((a != c).any(-1).sum())) for i, (a, c)
+                 in enumerate(zip(routes["cpu"], routes["card"])) if not torch.equal(a, c)]
+        log(f"    routing: {len(routes['cpu'])} MoE calls, {sum(a.shape[0] for a in routes['cpu'])}"
+            f" token routings of top-{cfg.moe.top_k} over {cfg.moe.n_experts} experts; calls "
+            f"with a token routed otherwise on the card: {flips}")
+        check(not flips, f"a routing flip between the card and the CPU: (call, tokens) {flips}")
+    if forced:
+        log(f"    teacher-forced: {len(forcing.calls)} layer calls, worst max abs diff "
+            f"{forcing.worst:.3g} of the output's largest magnitude (tol {forcing.tol})")
+        check(not forcing.bad, f"layer outputs differ on the card beyond {forcing.tol} of their "
+              f"largest magnitude: (layer, index, relative) {forcing.bad[:8]}")
+    worst = []
+    for i, (a, c) in enumerate(zip(ref[0], out[0])):
         tol = tol_prefill if i == 0 else tol_decode
         err = float((a - c).abs().max())
         check(torch.allclose(c, a, atol=tol, rtol=tol),
               f"card and CPU logits differ at step {i}: max abs {err} (atol = rtol = {tol})")
         worst.append(err)
-    same = all(torch.equal(a, c) for a, c in zip(outs["cpu"][1], outs["card"][1]))
+    same = all(torch.equal(a, c) for a, c in zip(ref[1], out[1]))
     check(same, "card and CPU greedy tokens differ")
-    log(f"[{phase}] {arch} full width, depth {depth}, float32, {requests} x {prompt_len}-token "
-        f"prompts, {max_new} greedy tokens: card == CPU tokens; logits max abs diff per step "
-        f"{[float(f'{e:.3g}') for e in worst]} (atol = rtol = {tol_prefill} for the "
-        f"prefill, {tol_decode} for decode); cpu {t_cpu:.2f} s, card {t_card:.2f} s")
+    extra = {k: v.shape for k, v in batch.items() if k != "tokens"}
+    log(f"[{phase}] {arch} full width, depth {depth}"
+        f"{f', {change}' if change else ''}, float32, {requests} x {prompt_len}-token prompts"
+        f"{f' with {extra}' if extra else ''}, {max_new} greedy tokens"
+        f"{', teacher-forced' if forced else ''}: card == CPU tokens; logits max abs diff per "
+        f"step {[float(f'{e:.3g}') for e in worst]} (atol = rtol = {tol_prefill} for the "
+        f"prefill, {tol_decode} for decode); cpu {ref[2]:.2f} s, card {out[2]:.2f} s")
 
 
 def main() -> int:
+    import dataclasses
+
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch not found)", file=sys.stderr)
@@ -2417,6 +2755,22 @@ def main() -> int:
         f"(torch.profiler, this process; phase 23's NCCL rank, a process of its own, "
         f"spent {NCCL_MS[0]:.2f} ms in its calls on its host clock, outside the trace)")
     elapsed("22-24")
+    # the model zoo's other families (phases 25-28) through the attention
+    # kernel, then each on the card against the CPU (phase 29)
+    served.append(phase_serve("grok-1-314b", 25, depth=6))
+    served.append(phase_serve("kimi-k2-1t-a32b", 26, depth=2))
+    elapsed("25-26")
+    served.append(phase_generate("qwen2-vl-2b", 27, prompt_len=64, max_new=32, max_seq=1120))
+    # text only through the engine, as the reference's engine serves it
+    served.append(phase_serve("qwen2-vl-2b", 27, requests=4, prompt_len=64, max_seq=128))
+    served.append(phase_generate("whisper-tiny", 28, prompt_len=4, max_new=64, max_seq=128))
+    elapsed("27-28")
+    phase_model_card_vs_cpu("qwen2-vl-2b", 29, depth=2, prompt_len=64, forced=True)
+    phase_model_card_vs_cpu("whisper-tiny", 29, depth=4, prompt_len=4, forced=True)
+    kimi_moe = _model_cfg("kimi-k2-1t-a32b").moe
+    phase_model_card_vs_cpu("kimi-k2-1t-a32b", 29, depth=1, forced=True,
+                            moe=dataclasses.replace(kimi_moe, n_experts=16))
+    elapsed("29")
     log(f"    launches on the invariants' paths: Table 1 {invariants[0]}, "
         f"whole graph {invariants[1]}, 256-node suite {invariants[2]}, "
         f"layout and remesh {invariants[3]}, collectives {invariants[4]}, "
@@ -2424,7 +2778,8 @@ def main() -> int:
     for run in invariants:
         launches = {name: launches[name] + run[name] for name in launches}
     log(f"    launches on the serving paths: zamba2 {served[0]}, qwen3 {served[1]}, "
-        f"mamba2 {served[2]}")
+        f"mamba2 {served[2]}, grok {served[3]}, kimi {served[4]}, qwen2-vl {served[5]} and "
+        f"as text {served[6]}, whisper {served[7]}")
     launches.update({name: sum(run[name] for run in served) for name in served[0]})
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]

@@ -2,9 +2,8 @@
 
 ``ArchConfig`` and its sub-configs are field-for-field copies of the
 reference's, so ``dataclasses.asdict`` of a port config equals the
-reference's.  Only the families the port runs have their config modules
-here; ``get_config`` raises ``NotImplementedError`` for a known
-architecture whose family is not ported yet (ROADMAP, Queue 1).
+reference's.  Every architecture of the reference has its config module
+here, and the port runs all six families.
 """
 from __future__ import annotations
 
@@ -108,26 +107,26 @@ ARCH_IDS = [
     "kimi-k2-1t-a32b",
 ]
 
-# architectures whose model family the port runs, with their config modules
-_PORTED = {
+# each architecture's config module
+_MODULE_FOR = {
     "qwen3-32b": "qwen3_32b",
     "minitron-8b": "minitron_8b",
     "phi3-medium-14b": "phi3_medium_14b",
     "codeqwen1.5-7b": "codeqwen1_5_7b",
     "mamba2-2.7b": "mamba2_2_7b",
     "zamba2-2.7b": "zamba2_2_7b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "whisper-tiny": "whisper_tiny",
+    "grok-1-314b": "grok_1_314b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
-PORTED_FAMILIES = ("hybrid", "dense", "ssm")
+PORTED_FAMILIES = ("hybrid", "dense", "ssm", "moe", "vlm", "encdec")
 
 
 def get_config(name: str) -> ArchConfig:
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
-    if name not in _PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} belongs to a model family the port does not run yet "
-            f"(ported: {sorted(_PORTED)}); see ROADMAP.md, Queue 1")
-    return importlib.import_module(f"{__package__}.{_PORTED[name]}").CONFIG
+    return importlib.import_module(f"{__package__}.{_MODULE_FOR[name]}").CONFIG
 
 
 def reduced_config(cfg: ArchConfig) -> ArchConfig:

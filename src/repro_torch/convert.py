@@ -29,9 +29,16 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-# the subtree of each ported family's param tree whose leaves carry a
-# leading layer axis
-_STACKED = {"dense": "blocks", "ssm": "mamba", "hybrid": "mamba"}
+# the subtrees of each family's param tree whose leaves carry a leading
+# layer axis, each with the config field that counts its layers
+_STACKED = {
+    "dense": {"blocks": "n_layers"},
+    "moe": {"blocks": "n_layers"},
+    "vlm": {"blocks": "n_layers"},
+    "ssm": {"mamba": "n_layers"},
+    "hybrid": {"mamba": "n_layers"},
+    "encdec": {"enc_blocks": "enc_layers", "dec_blocks": "n_layers"},
+}
 
 
 def _flat(prefix: str, tree, out: dict) -> dict:
@@ -47,23 +54,26 @@ def _flat(prefix: str, tree, out: dict) -> dict:
 def params_from_reference(cfg, params: dict) -> dict:
     """The port's state dict for the reference's param tree, given as numpy
     arrays (``jax.tree.map(np.asarray, params)``).  The family's stacked
-    per-layer subtree (leading layer axis: ``blocks`` for dense, ``mamba``
-    for ssm and hybrid) is unstacked into ``<subtree>.<i>.<path>``
-    (``blocks.3.attn.wq``, ``mamba.3.in_proj``); the rest keeps the tree's
-    path, joined with dots.  Load it with ``model.init(...).load_state_dict(sd)``
-    (the family must be ported: dense, ssm or hybrid)."""
-    if cfg.family not in _STACKED or cfg.moe is not None or cfg.mrope:
-        raise NotImplementedError(
-            f"{cfg.name}: model family {cfg.family!r} (moe={cfg.moe is not None}, "
-            f"mrope={cfg.mrope}) is not ported yet; see ROADMAP.md, Queue 1")
-    stacked = _STACKED[cfg.family]
+    per-layer subtrees (leading layer axis: ``blocks`` for dense, moe and
+    vlm, ``mamba`` for ssm and hybrid, ``enc_blocks`` and ``dec_blocks``
+    for encdec, each checked against its own layer count) are unstacked
+    into ``<subtree>.<i>.<path>`` (``blocks.3.attn.wq``,
+    ``blocks.3.moe.shared.w1``, ``enc_blocks.1.mlp.w2``); the rest keeps
+    the tree's path, joined with dots.  Load it with
+    ``model.init(...).load_state_dict(sd)``."""
+    if cfg.family not in _STACKED:
+        raise ValueError(f"{cfg.name}: unknown model family {cfg.family!r}")
+    stacks = _STACKED[cfg.family]
     sd: dict[str, torch.Tensor] = {}
-    for path, a in _flat("", params[stacked], {}).items():
-        if a.shape[0] != cfg.n_layers:
-            raise ValueError(f"{stacked}.{path} has {a.shape[0]} layers, expected {cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            sd[f"{stacked}.{i}.{path}"] = _tensor(a[i])
-    rest = _flat("", {k: v for k, v in params.items() if k != stacked}, {})
+    for stacked, field in stacks.items():
+        n = getattr(cfg, field)
+        for path, a in _flat("", params[stacked], {}).items():
+            if a.shape[0] != n:
+                raise ValueError(f"{stacked}.{path} has {a.shape[0]} layers, expected "
+                                 f"{field}={n}")
+            for i in range(n):
+                sd[f"{stacked}.{i}.{path}"] = _tensor(a[i])
+    rest = _flat("", {k: v for k, v in params.items() if k not in stacks}, {})
     sd.update((path, _tensor(a)) for path, a in rest.items())
     return sd
 

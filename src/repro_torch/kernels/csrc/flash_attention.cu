@@ -594,6 +594,12 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_wait(v_full + 8 * stage(t), phase(t));
         turn_begin();  // a turn with nothing to start
         turn_end();
+        // with no wgmma to hold them in step, this warpgroup's warps meet
+        // before the tile is released: a warp that lagged past the release
+        // would find the stage reloaded twice (kStages on, the same parity),
+        // wait for a load that needs its own turn, and trap (a warpgroup
+        // past the sequence's end skips every tile: sq % 128 in 1..64)
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
         if (signal) {
           mbar_arrive(k_empty + 8 * stage(t));
           mbar_arrive(v_empty + 8 * stage(t));

@@ -5,9 +5,14 @@ Runs the continuous-batching engine on synthetic prompts (drawn from
 TTFT / latency / throughput.  ``--full`` selects the real config;
 ``--device cpu`` runs the kernels' plain versions (the default is the CUDA
 device, and the launcher fails without one).  The default architecture is
-the reference launcher's, ``qwen3-32b`` (dense); the port also serves the
-other dense configs, ``mamba2-2.7b`` (ssm) and ``zamba2-2.7b`` (hybrid).
-Any other family raises ``NotImplementedError``.
+the reference launcher's, ``qwen3-32b`` (dense); ``--arch`` takes any of the
+ten: the other dense configs, ``mamba2-2.7b`` (ssm), ``zamba2-2.7b``
+(hybrid), ``grok-1-314b`` and ``kimi-k2-1t-a32b`` (moe) and ``qwen2-vl-2b``
+(vlm, served as text, as the reference's engine serves it).  The engine
+passes only tokens to prefill, as the reference's does, so
+``whisper-tiny`` (encdec, which needs frames) fails as the reference's
+launcher does, here with ``ValueError`` (the reference's with
+``KeyError``); drive it through ``Model.prefill``/``decode_step``.
 """
 from __future__ import annotations
 

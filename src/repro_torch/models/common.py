@@ -1,5 +1,6 @@
 """Shared model components: the seeded initializer, RMS norm, rotary
-embeddings and the SwiGLU MLP (the port's copy of ``repro.models.common``).
+embeddings (with Qwen2-VL's M-RoPE) and the SwiGLU MLP (the port's copy
+of ``repro.models.common``).
 
 Layers are plain functions ``f(p, x, ...)`` over a parameter mapping ``p``:
 a dict of tensors or a ``ParamModule`` (an ``nn.Module`` whose parameters
@@ -49,6 +50,17 @@ class Initializer:
                         dtype=torch.float32)
         return x.mul_(std).to(self.dtype)  # in place: one float32 temporary, not two
 
+    def normal_stack(self, shape: Sequence[int], stddev: float | None = None) -> torch.Tensor:
+        """``normal(shape)`` drawn one slice of the leading axis at a time
+        into a tensor of the target dtype, so that the float32 temporary is
+        one slice (an expert's (d, fe) weight), not the whole stack (kimi's
+        w1 would need 22.5 GB).  The std rule is the same: fan-in =
+        ``shape[-2]``."""
+        out = torch.empty(tuple(shape), dtype=self.dtype, device=self.device)
+        for i in range(shape[0]):
+            out[i] = self.normal(shape[1:], stddev)
+        return out
+
     def zeros(self, shape: Sequence[int]) -> torch.Tensor:
         return torch.zeros(tuple(shape), dtype=self.dtype, device=self.device)
 
@@ -58,12 +70,16 @@ class Initializer:
 
 class ParamModule(nn.Module):
     """An ``nn.Module`` that holds frozen parameters (inference only) and
-    reads them, and its submodules, as ``p["name"]``."""
+    reads them, and its submodules, as ``p["name"]``.  A nested dict of
+    tensors becomes a nested ``ParamModule``."""
 
-    def __init__(self, **tensors: torch.Tensor):
+    def __init__(self, **tree):
         super().__init__()
-        for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+        for name, t in tree.items():
+            if isinstance(t, dict):
+                self.add_module(name, ParamModule(**t))
+            else:
+                self.register_parameter(name, nn.Parameter(t, requires_grad=False))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -82,12 +98,25 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (ar / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotate ``x`` (b, s, h, hd) by ``positions`` (b, s) (no M-RoPE: the
-    ported families do not use it)."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """Rotate ``x`` (b, s, h, hd) by ``positions``: (b, s), or (3, b, s) for
+    M-RoPE, whose three streams (temporal, height, width) rotate the
+    consecutive slices of the half-dim that ``mrope_sections`` sizes (the
+    reference's slicing: a slice past hd/2 is cut short, so at hd 16 only
+    the temporal stream is reached)."""
     hd = x.shape[-1]
     inv = rope_frequencies(hd, theta, device=x.device)
-    ang = positions[..., None].float() * inv  # (b, s, hd/2)
+    if mrope_sections is None:
+        ang = positions[..., None].float() * inv  # (b, s, hd/2)
+    else:
+        if positions.dim() != 3:
+            raise ValueError(f"M-RoPE needs (3, b, s) positions, got {tuple(positions.shape)}")
+        parts, start = [], 0
+        for i, sec in enumerate(mrope_sections):
+            parts.append(positions[i][..., None].float() * inv[start:start + sec])
+            start += sec
+        ang = torch.cat(parts, dim=-1)  # (b, s, hd/2)
     sin = torch.sin(ang)[:, :, None, :]
     cos = torch.cos(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

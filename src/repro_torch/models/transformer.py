@@ -1,13 +1,15 @@
-"""Dense decoder-only transformer (GQA, RoPE, qk-norm, SwiGLU): the port's
-copy of ``repro.models.transformer``, serving path.
+"""Decoder-only transformer (GQA, RoPE/M-RoPE, qk-norm, SwiGLU or MoE FFN):
+the port's copy of ``repro.models.transformer``, serving path.
 
-Covers qwen3-32b, minitron-8b, phi3-medium-14b and codeqwen1.5-7b, and
-the attention block the hybrid family shares.  The reference stacks the
-layers (a leading L dim) and applies them with ``lax.scan``; here each
-layer is a ``DenseBlock`` in the ``blocks`` ModuleList of a ``DenseLM``
-and a Python loop applies them.  MoE FFNs and M-RoPE (the moe and vlm
-families) raise ``NotImplementedError``, as do loss and training
-(ROADMAP, Queue 1).
+Covers the dense family (qwen3-32b, minitron-8b, phi3-medium-14b,
+codeqwen1.5-7b), the moe family (grok-1-314b, kimi-k2-1t-a32b: the FFN is
+``moe.moe_ffn``), the qwen2-vl-2b backbone (patch embeddings enter before
+the text as precomputed vectors, M-RoPE position streams as inputs), and
+the attention block the hybrid and enc-dec families share.  The reference
+stacks the layers (a leading L dim) and applies them with ``lax.scan``;
+here each layer is a ``DenseBlock`` in the ``blocks`` ModuleList of a
+``DenseLM`` and a Python loop applies them.  Loss and training are not
+ported yet (ROADMAP, Queue 1).
 
 Weights keep the reference's layouts: ``wq`` (d, h, hd), ``wk``/``wv``
 (d, kv, hd), ``wo`` (h, hd, d), so the einsums read the same.  Head
@@ -22,9 +24,11 @@ from torch import nn
 from ..configs.base import ArchConfig
 from .attention import attention, decode_attention
 from .common import DTYPES, Initializer, ParamModule, apply_rope, rms_norm, swiglu
+from .moe import init_moe_ffn, moe_ffn
 
 __all__ = [
     "TP_MULTIPLE",
+    "MROPE_SECTIONS",
     "padded_dims",
     "attn_block",
     "attn_block_decode",
@@ -39,6 +43,8 @@ __all__ = [
 ]
 
 TP_MULTIPLE = 16  # the reference pads heads for its production model axis
+
+MROPE_SECTIONS = (16, 24, 24)  # qwen2-vl half-dim split (t, h, w)
 
 
 def padded_dims(cfg: ArchConfig) -> tuple[int, int, int]:
@@ -70,23 +76,16 @@ def _mlp_params(ini: Initializer, d: int, f: int) -> dict:
     return {"w1": ini.normal((d, f)), "w3": ini.normal((d, f)), "w2": ini.normal((f, d))}
 
 
-def _refuse_unported(cfg: ArchConfig) -> None:
-    if cfg.moe is not None or cfg.mrope:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs and M-RoPE are not ported yet (the port runs the dense "
-            f"SwiGLU with standard RoPE); see ROADMAP.md, Queue 1")
-
-
 def _qkv(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
-    _refuse_unported(cfg)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    sections = MROPE_SECTIONS if cfg.mrope else None
+    q = apply_rope(q, positions, cfg.rope_theta, sections)
+    k = apply_rope(k, positions, cfg.rope_theta, sections)
     return q, k, v
 
 
@@ -119,21 +118,21 @@ def attn_block_decode(p, x: torch.Tensor, position: torch.Tensor, idx: int,
 # ------------------------------------------------------------------------------
 
 class DenseBlock(ParamModule):
-    """One attention + SwiGLU layer: ``attn`` (wq, wk, wv, wo, and q_norm,
-    k_norm under qk-norm), ``mlp`` (w1, w3, w2), ``ln1`` and ``ln2``.  The
-    hybrid family's shared block is one too."""
-
-    def __init__(self, attn: dict, mlp: dict, ln1: torch.Tensor, ln2: torch.Tensor):
-        super().__init__(ln1=ln1, ln2=ln2)
-        self.attn = ParamModule(**attn)
-        self.mlp = ParamModule(**mlp)
+    """One attention + FFN layer: ``attn`` (wq, wk, wv, wo, and q_norm,
+    k_norm under qk-norm), ``ln1``, ``ln2`` and either ``mlp`` (w1, w3, w2)
+    or, for a config with ``moe``, ``moe`` (router, w1, w3, w2 and perhaps
+    ``shared``).  The hybrid family's shared block is one too."""
 
     @classmethod
     def init(cls, ini: Initializer, cfg: ArchConfig) -> "DenseBlock":
         hp, kvp, _ = padded_dims(cfg)
         d = cfg.d_model
-        return cls(_attn_params(ini, d, hp, kvp, cfg.resolved_head_dim, cfg.qk_norm),
-                   _mlp_params(ini, d, cfg.d_ff), ini.ones((d,)), ini.ones((d,)))
+        attn = _attn_params(ini, d, hp, kvp, cfg.resolved_head_dim, cfg.qk_norm)
+        if cfg.moe is not None:
+            ffn = {"moe": init_moe_ffn(ini, cfg)}
+        else:
+            ffn = {"mlp": _mlp_params(ini, d, cfg.d_ff)}
+        return cls(attn=attn, **ffn, ln1=ini.ones((d,)), ln2=ini.ones((d,)))
 
 
 class DenseLM(ParamModule):
@@ -148,10 +147,9 @@ class DenseLM(ParamModule):
 
 
 def init_dense(cfg: ArchConfig, seed: int, device) -> DenseLM:
-    """Weights drawn layer by layer (the reference draws each stacked
-    (L, ...) tensor at once, which at qwen3-32b would need a 33.6 GB
-    float32 temporary for w1)."""
-    _refuse_unported(cfg)
+    """Weights drawn layer by layer, and an MoE layer's experts one expert
+    at a time (the reference draws each stacked (L, ...) tensor at once,
+    which at qwen3-32b would need a 33.6 GB float32 temporary for w1)."""
     _, _, vp = padded_dims(cfg)
     d = cfg.d_model
     ini = Initializer(seed, DTYPES[cfg.dtype], device)
@@ -161,21 +159,35 @@ def init_dense(cfg: ArchConfig, seed: int, device) -> DenseLM:
 
 
 def _ffn(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The dense SwiGLU (the reference's MoE branch is not ported)."""
-    _refuse_unported(cfg)
+    """The dense SwiGLU or the MoE FFN (whose router aux loss serving drops)."""
+    if cfg.moe is not None:
+        return moe_ffn(p["moe"], x, cfg)[0]
     mlp = p["mlp"]
     return swiglu(x, mlp["w1"], mlp["w3"], mlp["w2"])
 
 
-def _positions_for(b: int, seq: int, device) -> torch.Tensor:
-    return torch.arange(seq, dtype=torch.int32, device=device)[None].expand(b, seq)
+def _positions_for(b: int, seq: int, device, mrope: bool = False) -> torch.Tensor:
+    """Positions 0..seq-1 for every lane: (b, seq), or (3, b, seq) with the
+    three M-RoPE streams equal (text only)."""
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None].expand(b, seq)
+    return pos[None].expand(3, b, seq) if mrope else pos
+
+
+def _embed_inputs(params, tokens: torch.Tensor, cfg: ArchConfig,
+                  img_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Token embeddings, with a vlm batch's image embeddings placed before
+    the text."""
+    x = params["embed"][tokens]
+    if cfg.family == "vlm" and img_embeds is not None:
+        x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def dense_layer(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """One layer on a full sequence.  Returns (x_out, (k, v)), k and v in
     (b, s, kv, hd).  (The reference also returns the MoE router's aux loss,
-    zero for a dense FFN.)"""
+    which serving does not read.)"""
     h, kv = attn_block(p["attn"], rms_norm(x, p["ln1"]), positions, cfg)
     x = x + h
     return x + _ffn(p, rms_norm(x, p["ln2"]), cfg), kv
@@ -203,16 +215,21 @@ def dense_init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     }
 
 
-def dense_prefill(params: DenseLM, tokens: torch.Tensor, cfg: ArchConfig, max_seq: int):
+def dense_prefill(params: DenseLM, tokens: torch.Tensor, cfg: ArchConfig, max_seq: int,
+                  img_embeds: torch.Tensor | None = None,
+                  positions: torch.Tensor | None = None):
     """A full forward that writes each layer's k and v straight into a
     (L, b, kv, max_seq, hd) cache in the activations' dtype (the reference
-    stacks them and pads).  Returns (last-position logits
-    (b, 1, vocab_padded), cache)."""
-    b, seq = tokens.shape
+    stacks them and pads).  A vlm batch may add ``img_embeds`` (b, img, d),
+    which come before the text, and ``positions`` ((3, b, img + text) for
+    M-RoPE); without them the positions are 0..seq-1 on every stream.
+    Returns (last-position logits (b, 1, vocab_padded), cache)."""
+    x = _embed_inputs(params, tokens, cfg, img_embeds)
+    b, seq = x.shape[:2]
     if seq > max_seq:
         raise ValueError(f"prompt of {seq} tokens exceeds max_seq={max_seq}")
-    x = params["embed"][tokens]
-    positions = _positions_for(b, seq, x.device)
+    if positions is None:
+        positions = _positions_for(b, seq, x.device, cfg.mrope)
     cache = dense_init_cache(cfg, b, max_seq, dtype=x.dtype, device=x.device)
     for i, layer in enumerate(params["blocks"]):
         x, (k, v) = dense_layer(layer, x, positions, cfg)
@@ -230,7 +247,8 @@ def dense_decode_step(params: DenseLM, tokens: torch.Tensor, cache: dict, cfg: A
     if idx >= cache["k"].shape[3]:
         raise ValueError(f"KV cache full: index {idx} of {cache['k'].shape[3]} slots")
     x = params["embed"][tokens]
-    position = torch.full((x.shape[0], 1), idx, dtype=torch.int32, device=x.device)
+    # the cache index on every stream under M-RoPE, as the reference has it
+    position = _positions_for(x.shape[0], 1, x.device, cfg.mrope) + idx
     for i, layer in enumerate(params["blocks"]):
         x = dense_layer_decode(layer, x, position, idx, cache["k"][i], cache["v"][i], cfg)
     x = rms_norm(x, params["final_norm"])

@@ -1,5 +1,6 @@
-"""Uniform model API (the port's counterpart of ``repro.models.zoo``), for
-the families the port runs (``dense``, ``ssm`` and ``hybrid``):
+"""Uniform model API (the port's counterpart of ``repro.models.zoo``) over
+the six families (``dense``, ``moe``, ``vlm``, ``ssm``, ``hybrid``,
+``encdec``):
 
     model = build_model(cfg, device=...)
     params = model.init(seed)                      -> nn.Module on the device
@@ -7,9 +8,13 @@ the families the port runs (``dense``, ``ssm`` and ``hybrid``):
     logits, cache = model.prefill(params, batch, max_seq)
     logits, cache = model.decode_step(params, tokens, cache)
 
-``device=None`` is the CUDA device and raises where there is none;
-``"cpu"`` runs the kernels' plain versions.  Any other family raises
-``NotImplementedError`` (ROADMAP, Queue 1), as do loss and training.
+A batch is the reference's dict of numpy arrays or tensors: ``tokens``
+(b, s); for vlm optionally ``img_embeds`` (b, img_tokens, d) and
+``positions`` (3, b, img_tokens + s); for encdec ``frames``
+(b, enc_seq, d), without which prefill raises ``ValueError`` (the
+reference raises ``KeyError``).  ``device=None`` is the CUDA device and
+raises where there is none; ``"cpu"`` runs the kernels' plain versions.
+Loss and training are not ported yet (ROADMAP, Queue 1).
 
 The SSM family (mamba2) lives here, as in the reference: a stack of Mamba2
 layers between the embedding and the head, with an O(1) decode state.
@@ -24,16 +29,29 @@ from torch import nn
 
 from ..configs.base import PORTED_FAMILIES, ArchConfig
 from ..device import resolve_device
-from . import hybrid, ssm, transformer
+from . import encdec, hybrid, ssm, transformer
 from .common import DTYPES, Initializer, ParamModule, rms_norm
 
 __all__ = ["Model", "SSMLM", "build_model"]
 
 
-def _tokens(x, device: torch.device) -> torch.Tensor:
+_TRANSFORMER = ("dense", "moe", "vlm")
+
+
+def _tensor(x, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A batch entry (numpy array or tensor) on ``device``.  A numpy array is
+    copied (it may be read-only); a bfloat16 one (``ml_dtypes``) goes
+    through its bits."""
     if isinstance(x, np.ndarray):
-        x = torch.from_numpy(x)
-    return x.to(device=device, dtype=torch.int64)
+        if x.dtype.name == "bfloat16":
+            x = torch.from_numpy(np.array(x).view(np.uint16)).view(torch.bfloat16)
+        else:
+            x = torch.from_numpy(np.array(x))
+    return x.to(device=device, dtype=dtype)
+
+
+def _tokens(x, device: torch.device) -> torch.Tensor:
+    return _tensor(x, device, torch.int64)
 
 
 # ------------------------------------------------------------------------------
@@ -111,45 +129,58 @@ class Model:
         """Weights drawn from ``torch.Generator(device).manual_seed(seed)``
         with the reference's std rules (not the reference's numbers)."""
         f = self.cfg.family
-        if f == "dense":
+        if f in _TRANSFORMER:
             return transformer.init_dense(self.cfg, seed, self.device)
         if f == "ssm":
             return _init_ssm(self.cfg, seed, self.device)
+        if f == "encdec":
+            return encdec.init_encdec(self.cfg, seed, self.device)
         return hybrid.init_hybrid(self.cfg, seed, self.device)
 
     def init_cache(self, batch: int, max_seq: int) -> dict:
         f = self.cfg.family
-        if f == "dense":
+        if f in _TRANSFORMER:
             return transformer.dense_init_cache(self.cfg, batch, max_seq, device=self.device)
         if f == "ssm":
             return {**ssm.init_ssm_state(self.cfg, self.cfg.n_layers, batch, self.device),
                     "index": 0}
+        if f == "encdec":
+            return encdec.encdec_init_cache(self.cfg, batch, max_seq, device=self.device)
         return hybrid.hybrid_init_cache(self.cfg, batch, max_seq, device=self.device)
 
     @torch.inference_mode()
     def prefill(self, params, batch: dict, max_seq: int):
         f = self.cfg.family
         tokens = _tokens(batch["tokens"], self.device)
-        if f == "dense":
-            return transformer.dense_prefill(params, tokens, self.cfg, max_seq)
+        if f in _TRANSFORMER:
+            extra = {name: _tensor(batch[name], self.device)
+                     for name in ("img_embeds", "positions") if name in batch}
+            return transformer.dense_prefill(params, tokens, self.cfg, max_seq, **extra)
         if f == "ssm":
             return _ssm_prefill(params, tokens, self.cfg)
+        if f == "encdec":
+            if "frames" not in batch:
+                raise ValueError(f"{self.cfg.name}: an encdec prefill needs the batch's "
+                                 f"'frames' (b, enc_seq, d_model)")
+            frames = _tensor(batch["frames"], self.device)
+            return encdec.encdec_prefill(params, tokens, frames, self.cfg, max_seq)
         return hybrid.hybrid_prefill(params, tokens, self.cfg, max_seq)
 
     @torch.inference_mode()
     def decode_step(self, params, tokens, cache: dict):
         f = self.cfg.family
         tokens = _tokens(tokens, self.device)
-        if f == "dense":
+        if f in _TRANSFORMER:
             return transformer.dense_decode_step(params, tokens, cache, self.cfg)
         if f == "ssm":
             return _ssm_decode(params, tokens, cache, self.cfg)
+        if f == "encdec":
+            return encdec.encdec_decode_step(params, tokens, cache, self.cfg)
         return hybrid.hybrid_decode_step(params, tokens, cache, self.cfg)
 
 
 def build_model(cfg: ArchConfig, device=None) -> Model:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ported: "
-            f"{list(PORTED_FAMILIES)}); see ROADMAP.md, Queue 1")
+        raise ValueError(f"unknown model family {cfg.family!r} (known: "
+                         f"{list(PORTED_FAMILIES)})")
     return Model(cfg=cfg, device=resolve_device(device))

@@ -28,7 +28,7 @@ from repro.models.sharding import make_rules
 from repro.serve import DecodeParams as JDecodeParams
 from repro.serve import Request as JRequest
 from repro.serve import ServingEngine as JServingEngine
-from repro_torch.configs import MoECfg, get_config, reduced_config
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.convert import params_from_reference
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build_model, transformer
@@ -237,19 +237,6 @@ def test_greedy_serving_matches_reference():
                 Request)
     assert got == want and len(got) == len(prompts)
     assert all(len(t) == max_new for t in got.values())
-
-
-@pytest.mark.parametrize("change", [
-    {"moe": MoECfg(n_experts=8, top_k=2, d_ff_expert=32)}, {"mrope": True}, {"family": "moe"}],
-    ids=["moe-ffn", "mrope", "moe-family"])
-def test_unported_dense_variants_are_refused(change):
-    """MoE FFNs and M-RoPE are refused, by name of ROADMAP Queue 1, at
-    ``build_model``/``init`` and in ``params_from_reference``."""
-    cfg = dataclasses.replace(reduced_config(get_config("qwen3-32b")), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu").init(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        params_from_reference(cfg, {"blocks": {}})
 
 
 def test_launcher_defaults_to_qwen3(monkeypatch, capsys):

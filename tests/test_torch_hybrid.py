@@ -76,12 +76,13 @@ def test_configs_equal_the_reference():
     assert dataclasses.asdict(full) == dataclasses.asdict(full_j)
     assert dataclasses.asdict(reduced_config(full)) == dataclasses.asdict(jreduced_config(full_j))
     assert full.resolved_head_dim == 80 and full.vocab_padded(16) == 32000
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("grok-1-314b")  # the moe family is not ported yet
+    # every family is ported: the moe configs load as the reference's
+    assert dataclasses.asdict(get_config("grok-1-314b")) == dataclasses.asdict(
+        jget_config("grok-1-314b"))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(full, family="moe"), device="cpu")
+    with pytest.raises(ValueError, match="unknown model family"):
+        build_model(dataclasses.replace(full, family="no-such-family"), device="cpu")
 
 
 def test_params_from_reference_keeps_bits(pair):
