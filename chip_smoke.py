@@ -171,11 +171,40 @@ Phases, in order; any failure raises and exits non-zero:
     shared expert and hd 112 kept), each teacher-forced layer by layer
     (their attention logits reach a std of 60-130 under the reference's
     init, and a free float32 run of whisper-tiny ends O(1) apart; the free
-    runs are logged), kimi's routing on both devices equal.
+    runs are logged), kimi's routing on both devices equal;
+30. the attention backward kernels (``flash_attention_bwd``: D, dK/dV, dQ)
+    against ``flash_attention_bwd_plain`` on the kernel's own o and lse
+    (relative Frobenius error of dq, dk, dv: 1e-2 in bf16, 1e-5 in fp32) at
+    the training shapes (qwen3-32b: b=4, h=64, kv=8, s=1024, hd=128,
+    causal; whisper-tiny at b=8: the encoder non-causal at s=1500, the
+    decoder at s=448, cross-attention of 448 queries against 1500 keys),
+    GQA, head dims 16-128, ragged tails, q_offset > 0 and fp32; the
+    forward's lse output against the plain forward's; ``ssd_intra_chunk``
+    refusing a CUDA input that needs a gradient; qwen3's and whisper's
+    encoder shapes timed beside their bound and SDPA's backward;
+31. the main training path: ``Trainer`` on qwen3-32b at full width, depth 2,
+    bf16, remat "full", 2 microbatches, AdamW (lr 1e-3, 8 steps, warmup 1),
+    ``SyntheticLM`` at seq 1024 and global batch 8, 8 steps: per-step loss,
+    grad norm, lr and time, tokens/s, model FLOP/s, peak memory against the
+    reckoning, 8 forward and 4 backward attention launches a step, and a
+    profile of one more step (busy share, both attention kernels, GEMMs,
+    the loss, the optimizer);
+32. whisper-tiny training at full width and depth (bf16, seq 448, global
+    batch 8, 8 steps, a checkpoint every 4): a run that crashes at step 4
+    through the failure hook, restored by a fresh ``Trainer`` and trained
+    to step 8, equal to the uninterrupted run (bit for bit, else reported
+    and held to a stated tolerance); the checkpoint's leaf names equal to
+    the JAX package's (pinned);
+33. one float32 train step on the card and on the CPU from the same weights
+    and batch: qwen3-32b at full width, depth 1 (b=2, s=128) and
+    whisper-tiny at full depth (its wq and wk at fan-in d_model; the
+    reference's init logged): loss and grad norm (1e-4), every gradient
+    tensor (1e-3) and every updated weight (2.2 lr) within tolerance.
 
 It prints one ``{"kernels": [...]}`` JSON line (per kernel: launches on the
 main paths (the BFS kernels: phases 5, 7, 19, 20, 21, 22, 23 and 24; the
-model kernels: phases 13, 15, 17 and 25-28),
+model kernels: phases 13, 15, 17, 25-28 and the training phases 31-33,
+where the attention backward kernel launches),
 the largest difference from the plain version, kernel, plain and library
 times from CUDA events around a run of calls, and the least time the card
 could take), then the
@@ -207,7 +236,8 @@ SWEEP_SOURCE = "src/repro_torch/kernels/csrc/bfs_sweep.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 KERNELS = ("bfs_sweep_kernel", "minplus_patch_kernel", "flash_attention_kernel",
-           "ssd_intra_chunk_kernel")
+           "ssd_intra_chunk_kernel", "flash_attention_bwd_dot_kernel",
+           "flash_attention_bwd_dkdv_kernel", "flash_attention_bwd_dq_kernel")
 DEV = "cuda"
 
 
@@ -803,14 +833,15 @@ def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
     return launches
 
 
-def profile_run(fn, label: str, top: int = 6, ranges: dict | None = None
-                ) -> tuple[float, float]:
+def profile_run(fn, label: str, top: int = 6, ranges: dict | None = None,
+                spans: tuple = ()) -> tuple[float, float]:
     """Device time of one run by kernel (torch.profiler), against its wall
     time: how much of the run keeps the card busy.  ``ranges`` maps a label
     to a (module, function name): each such function runs inside a
     ``record_function`` range of that label for the run, and the device
     time of the kernels it launched is reported.  Returns the device's busy
-    seconds and the wall seconds."""
+    seconds and the wall seconds.  ``spans`` names ``record_function``
+    ranges the program opens itself, reported the same way."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -866,9 +897,13 @@ def profile_run(fn, label: str, top: int = 6, ranges: dict | None = None
         hit = [(us, count) for us, count, key in rows if re.search(rf"\b{name}\b", key)]
         log(f"      {sum(h[0] for h in hit) / 1e3:10.2f} ms  x{sum(h[1] for h in hit):<5d} "
             f"{name} (all instantiations)")
+    gemm = [(us, count) for us, count, key in rows
+            if re.search(r"gemm|nvjet|xmma|cutlass|cublas", key, re.IGNORECASE)]
+    log(f"      {sum(g[0] for g in gemm) / 1e3:10.2f} ms  x{sum(g[1] for g in gemm):<5d} "
+        f"GEMMs (cuBLAS kernels)")
     # the device time of the kernels launched inside each range
     for e in averages:
-        if e.key in saved and e.device_type == DeviceType.CPU:
+        if (e.key in saved or e.key in spans) and e.device_type == DeviceType.CPU:
             log(f"      {e.device_time_total / 1e3:10.2f} ms  x{e.count:<5d} in {e.key}")
     return busy, wall
 
@@ -2691,6 +2726,490 @@ def phase_model_card_vs_cpu(arch: str, phase: int, depth: int, prompt_len: int =
         f"prefill, {tol_decode} for decode); cpu {ref[2]:.2f} s, card {out[2]:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# Training (phases 30-33)
+# ---------------------------------------------------------------------------
+
+# the attention backward's shapes on the training paths (phases 31-32):
+# (label, b, h, kv, sq, skv, hd, causal), bf16, b a microbatch
+TRAIN_ATTN = (
+    ("qwen3-32b", 4, 64, 8, 1024, 1024, 128, True),
+    ("whisper-tiny encoder", 8, 6, 6, 1500, 1500, 64, False),
+    ("whisper-tiny decoder", 8, 6, 6, 448, 448, 64, True),
+    ("whisper-tiny cross-attention", 8, 6, 6, 448, 1500, 64, False),
+)
+# the names of the JAX package's checkpoint leaves for whisper-tiny under
+# AdamW (``repro.checkpoint.ckpt._flatten_with_paths`` of its Trainer's
+# state tree, in order, joined by newlines): their count and sha256, pinned
+# here since this script imports nothing of ``repro``
+WHISPER_CKPT_NAMES = (82, "dde96b25f9d39527bd1ba68580095b8f2765cd582cdd19573aff3389f2049f98")
+
+
+def _rel_fro(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def phase_flash_bwd() -> dict:
+    """The attention backward kernels against ``flash_attention_bwd_plain``
+    on the same inputs (the kernel's own o and lse): the training shapes of
+    qwen3-32b and whisper-tiny, then GQA, head dims 16-128, a ragged tail,
+    q_offset > 0 and fp32; the forward's new lse output against the plain
+    forward's; ``ssd_intra_chunk`` refusing a CUDA input that needs a
+    gradient.  Then both training shapes timed beside their bound and
+    SDPA's backward (``enable_gqa``)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
+    f32, b16 = torch.float32, torch.bfloat16
+    # relative Frobenius error of dq, dk and dv: both sides sum in fp32 in
+    # other orders and round to the storage type once
+    tol = {b16: 1e-2, f32: 1e-5}
+    tol_lse = {b16: 1e-3, f32: 1e-5}
+    cases = [(b, h, kv, sq, skv, hd, 0, b16, causal)
+             for _, b, h, kv, sq, skv, hd, causal in TRAIN_ATTN]
+    cases += [(2, 8, 2, 200, 328, 128, 128, b16, True),
+              (2, 8, 2, 200, 328, 128, 128, f32, True),
+              (1, 4, 4, 77, 205, 80, 128, b16, True),
+              (2, 4, 2, 19, 19, 16, 0, b16, True),
+              (2, 4, 2, 19, 19, 16, 0, f32, True),
+              (2, 6, 2, 128, 256, 112, 0, b16, False),
+              (2, 6, 2, 130, 257, 112, 0, f32, False),
+              (2, 4, 2, 128, 128, 64, 0, f32, True),
+              (1, 64, 8, 256, 256, 128, 0, f32, True),
+              (1, 6, 6, 64, 1500, 64, 0, f32, False)]
+    errs, lse_errs = [], []
+    launches = fa.flash_attention_bwd.launches
+    for b_, h_, kv_, sq, skv, hd_, off, dtype, causal in cases:
+        mk = lambda *shape: rnd(*shape).to(dtype).transpose(1, 2)  # the model's layout
+        q, k, v = mk(b_, sq, h_, hd_), mk(b_, skv, kv_, hd_), mk(b_, skv, kv_, hd_)
+        do = mk(b_, sq, h_, hd_)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, q_offset=off, return_lse=True)
+        _, lse_p = fa.flash_attention_plain_lse(q, k, v, causal=causal, q_offset=off)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, q_offset=off)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, q_offset=off)
+        torch.cuda.synchronize()
+        e_lse = float((lse - lse_p).abs().max())
+        e = [_rel_fro(g, w) for g, w in zip(got, want)]
+        label = (f"b={b_} h={h_} kv={kv_} sq={sq} skv={skv} hd={hd_} q_offset={off} "
+                 f"{str(dtype)[6:]} causal={causal}")
+        check(e_lse <= tol_lse[dtype], f"the forward's lse != the plain forward's: {e_lse} at {label}")
+        check(max(e) <= tol[dtype] and all(np.isfinite(e)),
+              f"attention backward kernel != plain: dq, dk, dv relative errors {e} > "
+              f"{tol[dtype]} at {label}")
+        errs.append(max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)))
+        lse_errs.append(e_lse)
+        log(f"[30] attention backward {label}: relative Frobenius error dq {e[0]:.3g}, dk "
+            f"{e[1]:.3g}, dv {e[2]:.3g} (tol {tol[dtype]}); lse max abs err {e_lse:.3g} "
+            f"(tol {tol_lse[dtype]})")
+        del q, k, v, do, o, lse, got, want
+    check(fa.flash_attention_bwd.launches == launches + len(cases),
+          "the backward wrapper did not count its launches")
+    fa.flash_attention_bwd.launches = launches  # comparisons do not count
+
+    # the SSD kernel has no backward: a CUDA input that needs a gradient is
+    # refused before any launch
+    x = torch.zeros((2, 64, 16), device=DEV, requires_grad=True)
+    n0 = ssd.ssd_intra_chunk.launches
+    try:
+        ssd.ssd_intra_chunk(x, torch.zeros((2, 64), device=DEV), torch.zeros((2, 1), device=DEV),
+                            torch.zeros((2, 64, 16), device=DEV),
+                            torch.zeros((2, 64, 16), device=DEV), 64)
+        refused = ""
+    except NotImplementedError as exc:
+        refused = str(exc)
+    check("Queue 1, item 16" in refused and ssd.ssd_intra_chunk.launches == n0,
+          f"ssd_intra_chunk did not refuse a gradient on the card: {refused!r}")
+    log(f"[30] ssd_intra_chunk on a CUDA input that needs a gradient: NotImplementedError, "
+        f"no launch ({refused[:60]}...)")
+
+    rows = [flash_bwd_timed(rnd, *shape) for _, *shape in TRAIN_ATTN[:2]]
+    return {"name": "flash_attention_bwd_kernel", "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": "none: the JAX package differentiates its jnp attention "
+                        "(src/repro/models/attention.py:42); backward of "
+                        "src/repro/kernels/flash_attention.py:38",
+            "max_abs_err": max(errs), "max_lse_err": max(lse_errs), **rows[0]}
+
+
+def flash_bwd_timed(rnd, b: int, h: int, kv: int, sq: int, skv: int, hd: int,
+                    causal: bool) -> dict:
+    """The backward kernels (the three launches of one call), their plain
+    version and SDPA's backward (``torch.autograd.grad`` through
+    ``scaled_dot_product_attention`` with ``enable_gqa``) at one training
+    shape, bf16, on the main path's layout; the bound from 2.5x the
+    forward's FLOPs (5 products against 2) and the bytes of q, k, v, o, do
+    and lse read and dq, dk, dv written."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    mk = lambda *shape: rnd(*shape).to(torch.bfloat16).transpose(1, 2)
+    q, do = mk(b, sq, h, hd), mk(b, sq, h, hd)
+    k, v = mk(b, skv, kv, hd), mk(b, skv, kv, hd)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    n0 = fa.flash_attention_bwd.launches
+    ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal), reps=3, n=5)
+    fa.flash_attention_bwd.launches = n0
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal),
+                       reps=3, n=1)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, scale=hd ** -0.5,
+                                         enable_gqa=kv != h)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True))
+    fwd_flops = 4 * b * h * _attn_pairs(sq, skv, 0, causal) * hd
+    flops = 2.5 * fwd_flops
+    nbytes = 2 * b * hd * (3 * sq * h + 2 * skv * kv) + 4 * b * h * sq  # q, o, do, k, v, lse
+    nbytes += 2 * b * hd * (sq * h + 2 * skv * kv)  # dq, dk, dv written
+    bms, by, terms = bound(nbytes, [(flops, BF16_FLOP_PER_S)])
+    s = f"s={sq}" if sq == skv else f"sq={sq} skv={skv}"
+    log(f"    training shape b={b} h={h} kv={kv} {s} hd={hd} causal={causal}: backward kernels "
+        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the 5-product count), plain "
+        f"{plain_ms:.3f} ms, SDPA backward {lib_ms:.4f} ms, bound {bms:.4f} ms ({terms}; "
+        f"{flops / 1e9:.2f} GFLOP at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16, "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+
+def _train_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+
+    return {"flash_attention_kernel": fa.flash_attention_fwd.launches,
+            "flash_attention_bwd_kernel": fa.flash_attention_bwd.launches,
+            "ssd_intra_chunk_kernel": ssd.ssd_intra_chunk.launches}
+
+
+def _reset_train_counts() -> None:
+    from repro_torch.kernels import flash_attention as fa
+
+    _reset_model_counts()
+    fa.flash_attention_bwd.launches = 0
+
+
+def _trainer(cfg, steps: int, seq: int, batch: int, ckpt_dir=None, ckpt_every: int = 100,
+             device=None):
+    """A ``Trainer`` as the launcher builds it: the config's optimizer
+    through ``make_optimizer(lr=1e-3, total_steps=steps, warmup=1)`` and
+    ``SyntheticLM`` at seed 0."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import Trainer
+
+    return Trainer(model=build_model(cfg, device=device),
+                   opt=make_optimizer(cfg.optimizer, lr=1e-3, total_steps=steps, warmup=1),
+                   data=SyntheticLM(cfg, DataConfig(seq_len=seq, global_batch=batch, seed=0)),
+                   ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
+
+
+def _attn_calls_per_step(cfg) -> tuple[int, int]:
+    """(forward, backward) attention launches of one train step: each
+    layer's attentions per microbatch, forward once more per layer when it
+    is recomputed under remat."""
+    per = {"dense": cfg.n_layers, "moe": cfg.n_layers, "vlm": cfg.n_layers,
+           "encdec": cfg.enc_layers + 2 * cfg.n_layers}[cfg.family]
+    mb = cfg.microbatches
+    recomputed = 0 if cfg.remat == "none" else (
+        cfg.n_layers * (2 if cfg.family == "encdec" else 1))
+    return mb * (per + recomputed), mb * per
+
+
+def phase_train_qwen3(steps: int = 8, seq: int = 1024, batch: int = 8) -> dict:
+    """The main training path: ``Trainer`` on qwen3-32b at full width, depth
+    2 of 64, bf16, ``remat="full"``, 2 microbatches, AdamW as the launcher
+    sets it, ``SyntheticLM`` at seq 1024 and global batch 8, ``steps``
+    steps: per-step loss, grad norm, lr and time; the median step time,
+    tokens/s, model FLOP/s against the bf16 peak; peak memory against the
+    reckoning (bf16 weights, an fp32 accumulator, AdamW's m and v, bf16
+    gradients and a microbatch's logits); the attention kernels' launches
+    per step; then a profile of one more step."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.train import SPAN_GRADS, SPAN_OPTIMIZER
+
+    free_device()
+    cfg = _model_cfg("qwen3-32b", depth=2)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = _trainer(cfg, steps, seq, batch)  # the CUDA device: no device argument
+    tr.init(0)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tr.state["params"].parameters())
+    state_bytes = torch.cuda.memory_allocated()
+    log(f"[31] qwen3-32b training, full width, depth {cfg.n_layers}: {n / 1e9:.3f} B "
+        f"parameters, weights and AdamW state {state_bytes / 2**30:.2f} GiB, made in "
+        f"{time.perf_counter() - t0:.2f} s; remat {cfg.remat}, {cfg.microbatches} "
+        f"microbatches, global batch {batch} x {seq} tokens")
+    _reset_train_counts()
+    torch.cuda.reset_peak_memory_stats()
+    hist = tr.train(steps, log_every=0)
+    launches = _train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for h in hist:
+        log(f"    step {h['step']}: loss {h['loss']:.4f}, grad norm {h['grad_norm']:.4f}, lr "
+            f"{h['lr']:.3g}, {h['time_s'] * 1e3:.1f} ms")
+    check(all(np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist),
+          "a loss or grad norm is not finite")
+    fwd, bwd = _attn_calls_per_step(cfg)
+    want = {"flash_attention_kernel": steps * fwd, "flash_attention_bwd_kernel": steps * bwd,
+            "ssd_intra_chunk_kernel": 0}
+    check(launches == want, f"training launches {launches}, expected {want}")
+    med = float(np.median([h["time_s"] for h in hist[1:]]))
+    tokens = batch * seq
+    hp, kvp, vp = transformer.padded_dims(cfg)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    mm_params = cfg.n_layers * (d * (hp + 2 * kvp) * hd + hp * hd * d + 3 * d * cfg.d_ff) + d * vp
+    attn_fwd = cfg.n_layers * 4 * hp * hd * _attn_pairs(seq, seq, 0, True) * batch
+    model_flops = 6 * mm_params * tokens + 3 * attn_fwd
+    # the reckoning: bf16 weights and gradients, the fp32 accumulator, AdamW's
+    # fp32 m and v (16 bytes a parameter) and a microbatch's logits with
+    # their gradient in fp32 and bf16 (about 4 copies of b x s x vocab)
+    logits = (batch // cfg.microbatches) * seq * vp
+    reckoned = 16 * n + 4 * 4 * logits
+    log(f"    median step (steps 1-{steps - 1}) {med * 1e3:.1f} ms: {tokens / med:.0f} tokens/s, "
+        f"{model_flops / med / 1e12:.1f} TFLOP/s of model FLOPs ({model_flops / 1e12:.2f} TFLOP "
+        f"a step: 6 x {mm_params / 1e9:.3f} B matmul parameters x {tokens} tokens + attention), "
+        f"{100 * model_flops / med / BF16_FLOP_PER_S:.1f}% of {BF16_FLOP_PER_S / 1e12:.0f} "
+        f"TFLOP/s bf16; peak device memory {peak / 2**30:.2f} GiB (reckoned "
+        f"{reckoned / 2**30:.2f} GiB: 16 bytes x {n / 1e9:.3f} B parameters + 4 fp32 copies of "
+        f"a microbatch's logits); launches {launches}, per step forward {fwd}, backward {bwd}")
+    check(peak <= reckoned + 8 * 2**30,
+          f"peak device memory {peak / 2**30:.2f} GiB exceeds the reckoning "
+          f"{reckoned / 2**30:.2f} GiB by more than 8 GiB")
+    profile_run(lambda: tr.train(1, log_every=0), "one train step", top=12,
+                ranges={"cross_entropy_loss (forward)": (transformer, "cross_entropy_loss")},
+                spans=(SPAN_GRADS, SPAN_OPTIMIZER))
+    return launches
+
+
+def phase_train_whisper(steps: int = 8, seq: int = 448, batch: int = 8, every: int = 4) -> dict:
+    """whisper-tiny (encdec) at full width and depth, bf16: ``steps`` steps
+    with a checkpoint every ``every``; a second run that crashes (the
+    failure hook) at step ``every`` after its checkpoint there, and a fresh
+    ``Trainer`` that restores it and trains to ``steps``: its losses and
+    final weights against the uninterrupted run's, bit for bit (the path's
+    kernels and ops are deterministic; a difference is reported by tensor
+    and held to a stated tolerance); the checkpoint's leaf names against
+    the JAX package's."""
+    import hashlib
+    import json as _json
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+
+    free_device()
+    cfg = _model_cfg("whisper-tiny")
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        _reset_train_counts()
+        a = _trainer(cfg, steps, seq, batch, ckpt_dir=os.path.join(root, "a"), ckpt_every=every)
+        a.init(0)
+        t0 = time.perf_counter()
+        hist_a = a.train(steps, log_every=0)
+        wall = time.perf_counter() - t0
+        launches = _train_counts()
+        fwd, bwd = _attn_calls_per_step(cfg)
+        want = {"flash_attention_kernel": steps * fwd, "flash_attention_bwd_kernel": steps * bwd,
+                "ssd_intra_chunk_kernel": 0}
+        check(launches == want, f"whisper training launches {launches}, expected {want}")
+        check(all(np.isfinite(h["loss"]) for h in hist_a), "a whisper loss is not finite")
+        med = float(np.median([h["time_s"] for h in hist_a[1:]]))
+        log(f"[32] whisper-tiny training, full width and depth, bf16, global batch {batch} x "
+            f"{seq} tokens against {cfg.enc_seq} frames: {steps} steps in {wall:.2f} s, median "
+            f"step {med * 1e3:.1f} ms; losses {[round(h['loss'], 4) for h in hist_a]}; "
+            f"launches {launches}")
+        with open(os.path.join(root, "a", f"step_{every:09d}", "MANIFEST.json")) as f:
+            names = list(_json.load(f)["leaves"])
+        digest = hashlib.sha256("\n".join(names).encode()).hexdigest()
+        check((len(names), digest) == WHISPER_CKPT_NAMES,
+              f"checkpoint leaf names ({len(names)}, {digest}) differ from the JAX package's "
+              f"{WHISPER_CKPT_NAMES}")
+
+        class Crash(RuntimeError):
+            pass
+
+        def hook(step):
+            if step == every:
+                raise Crash(step)
+
+        b = _trainer(cfg, steps, seq, batch, ckpt_dir=os.path.join(root, "b"), ckpt_every=every)
+        b.init(0)
+        b.failure_hook = hook
+        try:
+            b.train(steps, log_every=0)
+        except Crash:
+            pass
+        check(ckpt.latest_step(os.path.join(root, "b")) == every,
+              "the crashed run left no checkpoint at its last save")
+        c = _trainer(cfg, steps, seq, batch, ckpt_dir=os.path.join(root, "b"), ckpt_every=every)
+        check(c.restore() and c.state["step"] == every and c.data.step == every,
+              "the fresh Trainer did not restore the step, weights and data stream")
+        hist_c = c.train(steps - every, log_every=0)
+        la = [h["loss"] for h in hist_a[every:]]
+        lc = [h["loss"] for h in hist_c]
+        pa = a.state["params"].state_dict()
+        pc = c.state["params"].state_dict()
+        differ = [k for k in pa if not torch.equal(pa[k], pc[k])]
+        if la == lc and not differ:
+            log(f"    restart from step {every}: losses {lc} and all {len(pa)} weight tensors "
+                f"equal the uninterrupted run's bit for bit; checkpoint leaves {len(names)}, "
+                f"names equal to the JAX package's")
+        else:
+            # the rule when an op on the path is not deterministic on the card
+            worst = max((_rel_fro(pc[k], pa[k]) for k in differ), default=0.0)
+            dl = max(abs(x - y) / abs(x) for x, y in zip(la, lc))
+            log(f"    restart from step {every}: NOT bit for bit: losses {la} vs {lc} (relative "
+                f"{dl:.3g}), {len(differ)} weight tensors differ (worst relative Frobenius "
+                f"{worst:.3g}): {differ[:6]}")
+            check(dl <= 1e-4 and worst <= 1e-3,
+                  "the restarted run is beyond the tolerance (losses 1e-4, weights 1e-3)")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _card_vs_cpu_step(cfg, b: int, s: int, lr: float, rescale_qk: bool = False) -> dict:
+    """One float32 train step of ``cfg`` on the card and on the CPU from the
+    card's initial weights (with ``rescale_qk``, every ``wq`` and ``wk``
+    first scaled to a fan-in of d_model) and the same batch.  Returns both
+    histories, the worst relative Frobenius distance of a gradient tensor
+    (the ones the optimizer was given, before its clip), the largest
+    updated-weight difference, the largest share of a tensor's elements
+    beyond 1e-5 of its magnitude (plus 1e-6), the launches and both
+    times."""
+    import copy
+
+    import torch
+
+    from repro_torch.convert import reference_leaves
+    from repro_torch.optim import Optimizer
+
+    def recording(tr):
+        """``tr`` with its optimizer's gradients copied before each update."""
+        seen = []
+        inner = tr.opt
+
+        def update(grads, state, leaves, step):
+            # copies: the clip scales the gradients in place
+            seen.append([g.detach().to("cpu", torch.float32, copy=True)
+                         for gs in grads for g in gs])
+            return inner.update(grads, state, leaves, step)
+
+        tr.opt = Optimizer(init=inner.init, update=update, name=inner.name)
+        tr.__post_init__()  # the step function takes the recording optimizer
+        return seen
+
+    card = _trainer(cfg, 8, s, b)
+    card.init(0)
+    if rescale_qk:
+        with torch.no_grad():
+            for name, t in card.state["params"].named_parameters():
+                if name.endswith((".wq", ".wk")):  # (d, heads, hd): fan-in heads -> d
+                    t.mul_((t.shape[1] / t.shape[0]) ** 0.5)
+    cpu = _trainer(cfg, 8, s, b, device="cpu")
+    p_cpu = copy.deepcopy(card.state["params"]).to("cpu")  # the card's weights
+    cpu.state = {"params": p_cpu, "step": 0,
+                 "opt_state": cpu.opt.init(reference_leaves(cfg, p_cpu))}
+    g_card, g_cpu = recording(card), recording(cpu)
+    _reset_train_counts()
+    t0 = time.perf_counter()
+    hc = card.train(1, log_every=0)[0]
+    t_card = time.perf_counter() - t0
+    counts = _train_counts()
+    t0 = time.perf_counter()
+    hp = cpu.train(1, log_every=0)[0]
+    t_cpu = time.perf_counter() - t0
+    out = {"card": hc, "cpu": hp, "grad": 0.0, "grad_worst": "", "share": 0.0, "far": 0.0,
+           "worst": "", "launches": counts, "t_card": t_card, "t_cpu": t_cpu}
+    names = [n for leaf in reference_leaves(cfg, p_cpu) for n in [leaf.path] * len(leaf.tensors)]
+    for name, gc, gp in zip(names, g_card[0], g_cpu[0]):
+        err = _rel_fro(gc, gp)
+        if err > out["grad"]:
+            out["grad"], out["grad_worst"] = err, name
+    pc = card.state["params"].state_dict()
+    for name, want in cpu.state["params"].state_dict().items():
+        diff = (pc[name].cpu() - want).abs()
+        share = float((diff > 1e-5 * want.abs().max() + 1e-6).float().mean())
+        if share > out["share"] or float(diff.max()) > out["far"]:
+            out["worst"] = name
+        out["share"], out["far"] = max(out["share"], share), max(out["far"], float(diff.max()))
+    return out
+
+
+def phase_train_card_vs_cpu() -> dict:
+    """One float32 train step on the card and on the CPU from the same
+    weights and batch (AdamW at lr 1e-3): qwen3-32b at full width, depth 1,
+    b = 2, s = 128, one microbatch, and whisper-tiny at full width and
+    depth (b = 2, s = 64 against its 1500 frames).  Checked: the loss and
+    grad norm within a relative 1e-4; every gradient tensor the optimizer
+    is given within a relative Frobenius 1e-3 of the CPU's (float32 sums in
+    other orders, the attention backward kernel against autograd through
+    the plain version); every updated weight within 2.2 lr of the CPU's.
+    That last bound is all a weight allows: AdamW's first step moves an
+    element by lr g / (|g| + eps) (plus the decay), so an element whose
+    gradient lies within the two devices' rounding of zero, or near eps,
+    may land anywhere in 2 lr; the share of elements beyond 1e-5 of their
+    tensor's magnitude is logged.
+
+    whisper-tiny is checked with its query and key projections scaled to a
+    fan-in of d_model (std 1/sqrt(384), as a (d, h hd) projection has): the
+    reference's init takes their fan-in from the head count, and its
+    attention logits (std 60-130, no qk-norm) make a float32 step
+    ill-conditioned, as phase 29 found for the forward (the card and the
+    CPU then differ by a few tenths of a percent in the loss and by tens of
+    percent in the grad norm).  That unscaled step is logged, unchecked."""
+    import torch
+
+    free_device()
+    torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 products on the card
+    torch.backends.cudnn.allow_tf32 = False
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True).stdout.split("\n")
+    log(f"[33] host memory (free -g): {' | '.join(line.strip() for line in free[:2])}")
+    launches: dict = {}
+    lr = 1e-3
+    runs = (("qwen3-32b", 1, 2, 128, False, True), ("whisper-tiny", None, 2, 64, False, False),
+            ("whisper-tiny", None, 2, 64, True, True))
+    for arch, depth, b, s, rescale, checked in runs:
+        cfg = _model_cfg(arch, depth, dtype="float32", microbatches=1)
+        r = _card_vs_cpu_step(cfg, b, s, lr, rescale_qk=rescale)
+        hc, hp = r["card"], r["cpu"]
+        fwd, bwd = _attn_calls_per_step(cfg)
+        counts = r["launches"]
+        check(counts["flash_attention_kernel"] == fwd
+              and counts["flash_attention_bwd_kernel"] == bwd,
+              f"{arch}: launches {counts}, expected forward {fwd}, backward {bwd}")
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+        d_loss = abs(hc["loss"] - hp["loss"]) / abs(hp["loss"])
+        d_norm = abs(hc["grad_norm"] - hp["grad_norm"]) / abs(hp["grad_norm"])
+        label = (f"{arch}{'' if depth is None else f' depth {depth}'}"
+                 f"{', wq and wk at fan-in d_model' if rescale else ''} float32, {b} x {s} tokens")
+        log(f"    {label}{'' if checked else ' (logged, not checked)'}: loss card "
+            f"{hc['loss']:.6f} / CPU {hp['loss']:.6f} (relative {d_loss:.3g}), grad norm "
+            f"{hc['grad_norm']:.6f} / {hp['grad_norm']:.6f} ({d_norm:.3g}); gradients: worst "
+            f"relative Frobenius {r['grad']:.3g} ({r['grad_worst']}); updated weights: at most "
+            f"{r['far']:.3g} apart (lr {lr}), at most {r['share']:.3g} of a tensor's elements "
+            f"beyond 1e-5 of its magnitude ({r['worst']}); card {r['t_card']:.2f} s, CPU "
+            f"{r['t_cpu']:.2f} s; launches {counts}")
+        if checked:
+            check(d_loss <= 1e-4 and d_norm <= 1e-4,
+                  f"{label}: card loss {hc['loss']} / grad norm {hc['grad_norm']} against the "
+                  f"CPU's {hp['loss']} / {hp['grad_norm']}")
+            check(r["grad"] <= 1e-3, f"{label}: the gradient of {r['grad_worst']} is "
+                  f"{r['grad']:.3g} (relative Frobenius) from the CPU's")
+            check(r["far"] <= 2.2 * lr, f"{label}: updated {r['worst']} is {r['far']:.3g} from "
+                  f"the CPU's, beyond 2.2 lr")
+        free_device()
+    return launches
+
 def main() -> int:
     import dataclasses
 
@@ -2771,6 +3290,12 @@ def main() -> int:
     phase_model_card_vs_cpu("kimi-k2-1t-a32b", 29, depth=1, forced=True,
                             moe=dataclasses.replace(kimi_moe, n_experts=16))
     elapsed("29")
+    # training: the attention backward kernel (phase 30), then the main
+    # training path (31), a restart from a checkpoint (32) and card == CPU (33)
+    kernels.append(phase_flash_bwd())
+    elapsed("30")
+    trained = [phase_train_qwen3(), phase_train_whisper(), phase_train_card_vs_cpu()]
+    elapsed("31-33")
     log(f"    launches on the invariants' paths: Table 1 {invariants[0]}, "
         f"whole graph {invariants[1]}, 256-node suite {invariants[2]}, "
         f"layout and remesh {invariants[3]}, collectives {invariants[4]}, "
@@ -2781,6 +3306,10 @@ def main() -> int:
         f"mamba2 {served[2]}, grok {served[3]}, kimi {served[4]}, qwen2-vl {served[5]} and "
         f"as text {served[6]}, whisper {served[7]}")
     launches.update({name: sum(run[name] for run in served) for name in served[0]})
+    log(f"    launches on the training paths: qwen3 {trained[0]}, whisper {trained[1]}, "
+        f"card against CPU {trained[2]}")
+    for name in trained[0]:
+        launches[name] = launches.get(name, 0) + sum(run[name] for run in trained)
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -56,8 +56,13 @@ Ported so far:
   ``torch.distributed`` (``comm.torchcoll``); the paper's table and figure
   scripts are ``benchmarks/torch_*.py`` (``benchmarks/torch_run.py``).
 
-The other model families, loss and training are not ported yet
-(ROADMAP.md).
+- training (``train.Trainer``, ``python -m repro_torch.launch.train``):
+  ``Model.loss`` for every family, the optimizers (``optim``), the data
+  pipeline (``data``) and checkpoints in the reference's layout
+  (``checkpoint``); on the card the attention's gradient comes from a
+  hand-written backward kernel (``kernels/flash_attention.py``).  The SSD
+  kernel has no backward yet, so the ssm and hybrid families train on the
+  CPU only (ROADMAP.md).
 """
 from .core.certify import certify, verify_entry
 from .core.metrics import IncrementalAPSP, apsp, apsp_hops, bisection_width, girth, stats

@@ -1,6 +1,8 @@
-"""Carry state from the reference package into the port: a model's weights
-(``params_from_reference``) and a replica-polish chain's search state
-(``chain_state_from_reference``).
+"""Carry state between the reference package and the port: a model's
+weights (``params_from_reference``, and back with ``params_to_reference``),
+the reference tree's leaves over the port's parameters
+(``reference_leaves``, what the optimizers and checkpoints walk) and a
+replica-polish chain's search state (``chain_state_from_reference``).
 
 For the search, the "weights" are search state: a replica-polish chain is its padded
 neighbour table, its (s, n) int32 representative-row distances and its
@@ -15,8 +17,10 @@ import torch
 
 from .core.search import _PolishChain
 from .device import resolve_device
+from .optim.optimizers import Leaf, tree_set
 
-__all__ = ["chain_state_from_reference", "params_from_reference"]
+__all__ = ["chain_state_from_reference", "params_from_reference", "params_to_reference",
+           "reference_leaves"]
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -76,6 +80,50 @@ def params_from_reference(cfg, params: dict) -> dict:
     rest = _flat("", {k: v for k, v in params.items() if k not in stacks}, {})
     sd.update((path, _tensor(a)) for path, a in rest.items())
     return sd
+
+
+def _split(cfg, name: str) -> tuple[str, int | None]:
+    """A port parameter name -> (its reference path joined with "/", its
+    layer index or None): ``blocks.3.attn.wq`` -> ("blocks/attn/wq", 3)."""
+    if cfg.family not in _STACKED:
+        raise ValueError(f"{cfg.name}: unknown model family {cfg.family!r}")
+    head, _, rest = name.partition(".")
+    if head in _STACKED[cfg.family]:
+        layer, _, rest = rest.partition(".")
+        return f"{head}/{rest.replace('.', '/')}", int(layer)
+    return name.replace(".", "/"), None
+
+
+def reference_leaves(cfg, params) -> list[Leaf]:
+    """The reference tree's leaves over the port's parameters (an
+    ``nn.Module`` or a state dict), in the reference's flatten order
+    (dict keys sorted at every level): each stacked subtree's leaf gathers
+    its layers' tensors in layer order."""
+    named = params.named_parameters() if hasattr(params, "named_parameters") else params.items()
+    groups: dict[str, dict] = {}
+    stacked: dict[str, bool] = {}
+    for name, t in named:
+        path, layer = _split(cfg, name)
+        groups.setdefault(path, {})[layer] = t
+        stacked[path] = layer is not None
+    out = []
+    for path in sorted(groups, key=lambda p: p.split("/")):
+        layers = groups[path]
+        tensors = tuple(layers[i] for i in sorted(layers)) if stacked[path] else (layers[None],)
+        out.append(Leaf(path, tensors, stacked[path]))
+    return out
+
+
+def params_to_reference(cfg, params) -> dict:
+    """The reference's param tree (nested dicts, each stacked subtree's
+    leaves with their leading layer axis) of the port's parameters (an
+    ``nn.Module`` or a state dict), as detached tensors on their device:
+    the inverse of ``params_from_reference``."""
+    tree: dict = {}
+    for leaf in reference_leaves(cfg, params):
+        ts = [t.detach() for t in leaf.tensors]
+        tree_set(tree, leaf.path, torch.stack(ts) if leaf.stacked else ts[0])
+    return tree
 
 
 def chain_state_from_reference(nbr: np.ndarray, dist: np.ndarray, orb_list,

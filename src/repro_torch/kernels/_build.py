@@ -113,8 +113,10 @@ def library() -> ctypes.CDLL:
         lib.bfs_sweep_launch.restype = i
         lib.minplus_patch_launch.argtypes = [p, p, p, p] + [i] * 10 + [p]
         lib.minplus_patch_launch.restype = i
-        lib.flash_attention_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+        lib.flash_attention_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
         lib.flash_attention_launch.restype = i
+        lib.flash_attention_bwd_launch.argtypes = [p] * 11 + [i] * 9 + [f, p]
+        lib.flash_attention_bwd_launch.restype = i
         lib.flash_attention_probe_launch.argtypes = [p, p, p, p, p, i, p]
         lib.flash_attention_probe_launch.restype = i
         lib.ssd_intra_chunk_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]

@@ -56,6 +56,32 @@
 //   hd/16 output columns; row maxima and sums reduce over 16 lanes by
 //   shuffles; causal key tiles past the diagonal are skipped.
 //
+// Both forward kernels also write, when given a pointer, each query row's
+// log-sum-exp of its scaled, masked logits (fp32, (b, h, sq)): m + log l.
+//
+// The backward (flash_attention_bwd_launch) replaces no TPU kernel: the
+// JAX package differentiates its jnp attention and defines no gradient for
+// its Pallas kernel, while the port's attention always launches the kernel
+// on the card, so training needs this one.  Given q, k, v, o, do and the
+// forward's lse, with P = exp(scale q k^T - lse) (masked entries 0) and
+// D = rowsum(do o): dV = P^T do and dK = scale dS^T q summed over the query
+// heads of a KV group, dS = P (do v^T - D), dQ = scale dS k.  FA2's split,
+// three launches, no atomics (the result is the same from run to run):
+//   flash_attention_bwd_dot_kernel: D, one warp a query row;
+//   flash_attention_bwd_dkdv_kernel: one block per (64-key tile, KV head,
+//     batch), K and V resident, walking the 64-row query tiles of every
+//     query head of its group that the causal mask lets see the tile;
+//   flash_attention_bwd_dq_kernel: one block per (64-query tile, head,
+//     batch), walking the key tiles the tile can see.
+// Bound on this card: about 2.5x the forward's products (5 matrix products
+// against 2), 172 GFLOP at qwen3-32b's training shape (b 4, h 64, kv 8,
+// s 1024, hd 128, causal), 0.174 ms at 989 TFLOP/s bf16.  This first design
+// runs on the CUDA cores in fp32 (bf16 or fp32 storage, either dtype, any
+// hd up to 128): 256 threads, each 4 x 4 of the S and dP tiles and 4 x hd/16
+// of the accumulators, the operands staged in shared memory as fp32 with
+// odd row strides; it recomputes S and dP in both passes (7 products).
+// Its time is far from the bound; the tensor-core redesign is queued.
+//
 // flash_attention_probe_kernel checks, on the card, the fragment layouts
 // the bf16 kernel rests on: one warpgroup computes S = Q K^T and then
 // bf16(S) V with the same loads, descriptors and products, and writes each
@@ -90,9 +116,9 @@ constexpr int smem_floats() {
 template <int DPT>
 __global__ void __launch_bounds__(kThreads32)
 flash_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, float* __restrict__ o, Strides st,
-                            int rep, int sq, int skv, int hd, int causal, int q_offset,
-                            float scale) {
+                            const float* __restrict__ v, float* __restrict__ o,
+                            float* __restrict__ lse, Strides st, int rep, int sq, int skv,
+                            int hd, int causal, int q_offset, float scale) {
   constexpr int HDP = DPT * 16;
   constexpr int QS = HDP + 1;    // row stride of the query tile
   constexpr int KS = kBK32 + 1;  // row stride of the transposed key tile and of P
@@ -226,32 +252,34 @@ flash_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict
       const int d = tx + 16 * j;
       if (d < hd) ob[(long long)row * st.o[2] + d] = acc[i][j] / den;
     }
+    // the row's log-sum-exp of the scaled logits (m is in scaled units here)
+    if (lse != nullptr && tx == 0) lse[(bb * gridDim.y + hh) * sq + row] = m[i] + logf(den);
   }
 }
 
 template <int DPT>
-int launch_fp32(const float* q, const float* k, const float* v, float* o, const Strides& st,
-                int b, int h, int rep, int sq, int skv, int hd, int causal, int q_offset,
-                float scale, cudaStream_t stream) {
+int launch_fp32(const float* q, const float* k, const float* v, float* o, float* lse,
+                const Strides& st, int b, int h, int rep, int sq, int skv, int hd, int causal,
+                int q_offset, float scale, cudaStream_t stream) {
   const int smem = smem_floats<DPT>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_fp32_kernel<DPT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kBQ32 - 1) / kBQ32, h, b);
   flash_attention_fp32_kernel<DPT><<<grid, kThreads32, smem, stream>>>(
-      q, k, v, o, st, rep, sq, skv, hd, causal, q_offset, scale);
+      q, k, v, o, lse, st, rep, sq, skv, hd, causal, q_offset, scale);
   return cudaGetLastError();
 }
 
-int dispatch_fp32(const void* q, const void* k, const void* v, void* o, const Strides& st,
-                  int b, int h, int rep, int sq, int skv, int hd, int causal, int q_offset,
-                  float scale, cudaStream_t s) {
+int dispatch_fp32(const void* q, const void* k, const void* v, void* o, float* lse,
+                  const Strides& st, int b, int h, int rep, int sq, int skv, int hd, int causal,
+                  int q_offset, float scale, cudaStream_t s) {
   const float* q_ = static_cast<const float*>(q);
   const float* k_ = static_cast<const float*>(k);
   const float* v_ = static_cast<const float*>(v);
   float* o_ = static_cast<float*>(o);
 #define REPRO_FA32(DPT) \
-  case DPT: return launch_fp32<DPT>(q_, k_, v_, o_, st, b, h, rep, sq, skv, hd, causal, q_offset, scale, s)
+  case DPT: return launch_fp32<DPT>(q_, k_, v_, o_, lse, st, b, h, rep, sq, skv, hd, causal, q_offset, scale, s)
   switch ((hd + 15) / 16) {
     REPRO_FA32(1); REPRO_FA32(2); REPRO_FA32(3); REPRO_FA32(4);
     REPRO_FA32(5); REPRO_FA32(6); REPRO_FA32(7); REPRO_FA32(8);
@@ -362,12 +390,16 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBK / 2], uint32_t (&p)[
   pack_bf16(s, p);
 }
 
-template <int NS>
+// kLse: also write each row's log-sum-exp (the training path's
+// instantiation; serving's, without it, is the kernel as it was before the
+// backward existed)
+template <int NS, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-                       long long o_sb, long long o_sh, long long o_ss, int heads, int n_bh,
+                       float* __restrict__ lse, long long o_sb, long long o_sh, long long o_ss,
+                       int heads, int n_bh,
                        int rep, int sq, int skv, int hd, int causal, int q_offset,
                        float scale_log2) {
   using L = Smem<NS>;
@@ -624,6 +656,11 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
           const int rr = row + 8 * r;
           if (rr >= sq) continue;
           const float inv = 1.f / fmaxf(l[r], 1e-30f);  // one division per row
+          // the row's log-sum-exp of the scaled logits: m is in raw units and
+          // l sums 2^(s c - m c), so lse = (m c + log2 l) ln 2
+          if (kLse && lane % 4 == 0)
+            lse[(long long)bh * sq + rr] =
+                (m[r] * scale_log2 + __log2f(fmaxf(l[r], 1e-30f))) * 0.69314718055994531f;
           __nv_bfloat16* orow = ob + (long long)rr * o_ss;
 #pragma unroll
           for (int c = 0; c < 2 * NS; ++c) {
@@ -683,12 +720,12 @@ flash_attention_probe_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 
-template <int NS>
+template <int NS, bool kLse>
 int launch_bf16(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, void* o,
-                const long long* so, int b, int h, int rep, int sq, int skv, int hd, int causal,
-                int q_offset, float scale, cudaStream_t stream) {
+                float* lse, const long long* so, int b, int h, int rep, int sq, int skv, int hd,
+                int causal, int q_offset, float scale, cudaStream_t stream) {
   const int smem = Smem<NS>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<NS>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<NS, kLse>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long work = (long long)b * h * ((sq + kBQ - 1) / kBQ);
@@ -697,8 +734,8 @@ int launch_bf16(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap&
   err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int blocks = (int)(work < sms ? work : sms);  // one resident block per SM
-  flash_attention_kernel<NS><<<blocks, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), so[0], so[1], so[2], h, b * h, rep, sq, skv,
+  flash_attention_kernel<NS, kLse><<<blocks, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, so[0], so[1], so[2], h, b * h, rep, sq, skv,
       hd, causal, q_offset, scale * kLog2e);
   return cudaGetLastError();
 }
@@ -714,15 +751,365 @@ int launch_probe(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Backward: CUDA cores, fp32 arithmetic, bf16 or fp32 storage
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 256;
+constexpr int kBQb = 64;  // query rows of a tile
+constexpr int kBKb = 64;  // keys of a tile
+
+// (batch, head, seq) strides in elements of q, k, v, o, do, dq, dk and dv
+struct BwdStrides {
+  long long q[3], k[3], v[3], o[3], dout[3], dq[3], dk[3], dv[3];
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// rows x HDP columns of a (seq, hd) slice into shared memory as fp32, row
+// stride RS; rows past n and columns past hd are zero
+template <typename T, int HDP, int RS>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, long long stride, int r0,
+                                          int rows, int n, int hd) {
+  for (int idx = threadIdx.x; idx < rows * HDP; idx += kBwdThreads) {
+    const int r = idx / HDP;
+    const int d = idx - r * HDP;
+    float val = 0.f;
+    if (r0 + r < n && d < hd) val = to_f32(src[(long long)(r0 + r) * stride + d]);
+    dst[r * RS + d] = val;
+  }
+}
+
+// D_i = do_i . o_i for every (batch, head, query row), one warp a row
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_attention_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                               float* __restrict__ D, BwdStrides st, int h, int sq, int hd,
+                               long long n_rows) {
+  const long long row = (long long)blockIdx.x * (kBwdThreads / 32) + threadIdx.x / 32;
+  if (row >= n_rows) return;
+  const int lane = threadIdx.x % 32;
+  const long long s = row % sq, bh = row / sq;
+  const long long hh = bh % h, bb = bh / h;
+  const T* orow = o + bb * st.o[0] + hh * st.o[1] + s * st.o[2];
+  const T* drow = dout + bb * st.dout[0] + hh * st.dout[1] + s * st.dout[2];
+  float acc = 0.f;
+  for (int d = lane; d < hd; d += 32) acc = fmaf(to_f32(orow[d]), to_f32(drow[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) D[row] = acc;
+}
+
+// S = Q K^T and dP = dO V^T of one (query tile, key tile) pair: each
+// thread 4 query rows (ty + 16 i) by 4 keys (tx + 16 j); P = exp(scale S -
+// lse) with masked entries 0 and dS = P (dP - D) go to shared memory
+template <int HDP, int RS, int PS>
+__device__ __forceinline__ void p_ds_tile(const float* Qs, const float* dOs, const float* Ks,
+                                          const float* Vs, const float* Ls, const float* Ds,
+                                          float* Ps, float* dSs, int q0, int k0, int sq,
+                                          int skv, int causal, int q_offset, float scale) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HDP; ++d) {
+    float qa[4], da[4], ka[4], va[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qa[i] = Qs[(ty + 16 * i) * RS + d];
+      da[i] = dOs[(ty + 16 * i) * RS + d];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      ka[j] = Ks[(tx + 16 * j) * RS + d];
+      va[j] = Vs[(tx + 16 * j) * RS + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
+        dp[i][j] = fmaf(da[i], va[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    const long long qpos = (long long)q_offset + q0 + r;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      const bool ok = q0 + r < sq && k0 + c < skv && (!causal || qpos >= k0 + c);
+      const float p = ok ? expf(fmaf(s[i][j], scale, -Ls[r])) : 0.f;
+      if (Ps != nullptr) Ps[r * PS + c] = p;
+      dSs[r * PS + c] = p * (dp[i][j] - Ds[r]);
+    }
+  }
+}
+
+// dK and dV of one key tile of one KV head: the block walks the query tiles
+// of every query head of its group that can see the tile, with the key and
+// value tiles resident; dV += P^T dO and dK += scale dS^T Q in registers
+// (4 keys by DPT columns a thread), written once at the end
+template <typename T, int DPT>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, const T* __restrict__ dout,
+                                const float* __restrict__ lse, const float* __restrict__ D,
+                                T* __restrict__ dk, T* __restrict__ dv, BwdStrides st, int h,
+                                int rep, int sq, int skv, int hd, int causal, int q_offset,
+                                float scale) {
+  constexpr int HDP = DPT * 16;
+  constexpr int RS = HDP + 1;  // odd row strides: a warp's column reads hit distinct banks
+  constexpr int PS = kBKb + 1;
+  extern __shared__ float smem[];
+  float* Ks = smem;             // [kBKb][RS]
+  float* Vs = Ks + kBKb * RS;   // [kBKb][RS]
+  float* Qs = Vs + kBKb * RS;   // [kBQb][RS]
+  float* dOs = Qs + kBQb * RS;  // [kBQb][RS]
+  float* Ps = dOs + kBQb * RS;  // [kBQb][PS]
+  float* dSs = Ps + kBQb * PS;  // [kBQb][PS]
+  float* Ls = dSs + kBQb * PS;  // [kBQb]
+  float* Ds = Ls + kBQb;        // [kBQb]
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int k0 = blockIdx.x * kBKb;
+  const long long kh = blockIdx.y, bb = blockIdx.z;
+
+  load_tile<T, HDP, RS>(Ks, k + bb * st.k[0] + kh * st.k[1], st.k[2], k0, kBKb, skv, hd);
+  load_tile<T, HDP, RS>(Vs, v + bb * st.v[0] + kh * st.v[1], st.v[2], k0, kBKb, skv, hd);
+  float adk[4][DPT], adv[4][DPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) adk[i][j] = adv[i][j] = 0.f;
+
+  // under the causal mask, query rows before k0 - q_offset see no key here
+  int q_first = 0;
+  if (causal && k0 > q_offset) q_first = (k0 - q_offset) / kBQb * kBQb;
+  for (int hi = 0; hi < rep; ++hi) {
+    const long long hh = kh * rep + hi;
+    const T* qb = q + bb * st.q[0] + hh * st.q[1];
+    const T* db = dout + bb * st.dout[0] + hh * st.dout[1];
+    const float* lb = lse + (bb * h + hh) * sq;
+    const float* Db = D + (bb * h + hh) * sq;
+    for (int q0 = q_first; q0 < sq; q0 += kBQb) {
+      __syncthreads();  // the previous tile's Q, dO, P and dS are no longer read
+      load_tile<T, HDP, RS>(Qs, qb, st.q[2], q0, kBQb, sq, hd);
+      load_tile<T, HDP, RS>(dOs, db, st.dout[2], q0, kBQb, sq, hd);
+      if (threadIdx.x < kBQb) {
+        const int r = q0 + threadIdx.x;
+        Ls[threadIdx.x] = r < sq ? lb[r] : 0.f;
+        Ds[threadIdx.x] = r < sq ? Db[r] : 0.f;
+      }
+      __syncthreads();
+      p_ds_tile<HDP, RS, PS>(Qs, dOs, Ks, Vs, Ls, Ds, Ps, dSs, q0, k0, sq, skv, causal,
+                             q_offset, scale);
+      __syncthreads();
+      const int r_end = min(kBQb, sq - q0);  // rows past sq have P = dS = 0
+      for (int r = 0; r < r_end; ++r) {
+        float pa[4], sa[4], da[DPT], qa[DPT];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pa[i] = Ps[r * PS + ty + 16 * i];
+          sa[i] = dSs[r * PS + ty + 16 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < DPT; ++j) {
+          da[j] = dOs[r * RS + tx + 16 * j];
+          qa[j] = Qs[r * RS + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < DPT; ++j) {
+            adv[i][j] = fmaf(pa[i], da[j], adv[i][j]);
+            adk[i][j] = fmaf(sa[i], qa[j], adk[i][j]);
+          }
+      }
+    }
+  }
+  T* dkb = dk + bb * st.dk[0] + kh * st.dk[1];
+  T* dvb = dv + bb * st.dv[0] + kh * st.dv[1];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key >= skv) continue;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      const int d = tx + 16 * j;
+      if (d < hd) {
+        dkb[(long long)key * st.dk[2] + d] = from_f32<T>(adk[i][j] * scale);
+        dvb[(long long)key * st.dv[2] + d] = from_f32<T>(adv[i][j]);
+      }
+    }
+  }
+}
+
+// dQ of one query tile of one head: the block walks the key tiles the tile
+// can see; dQ += scale dS K in registers (4 rows by DPT columns a thread)
+template <typename T, int DPT>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ D,
+                              T* __restrict__ dq, BwdStrides st, int h, int rep, int sq, int skv,
+                              int hd, int causal, int q_offset, float scale) {
+  constexpr int HDP = DPT * 16;
+  constexpr int RS = HDP + 1;
+  constexpr int PS = kBKb + 1;
+  extern __shared__ float smem[];
+  float* Ks = smem;             // [kBKb][RS]
+  float* Vs = Ks + kBKb * RS;   // [kBKb][RS]
+  float* Qs = Vs + kBKb * RS;   // [kBQb][RS]
+  float* dOs = Qs + kBQb * RS;  // [kBQb][RS]
+  float* dSs = dOs + kBQb * RS; // [kBQb][PS]
+  float* Ls = dSs + kBQb * PS;  // [kBQb]
+  float* Ds = Ls + kBQb;        // [kBQb]
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = blockIdx.x * kBQb;
+  const long long hh = blockIdx.y, bb = blockIdx.z;
+  const long long kh = hh / rep;
+
+  load_tile<T, HDP, RS>(Qs, q + bb * st.q[0] + hh * st.q[1], st.q[2], q0, kBQb, sq, hd);
+  load_tile<T, HDP, RS>(dOs, dout + bb * st.dout[0] + hh * st.dout[1], st.dout[2], q0, kBQb,
+                        sq, hd);
+  if (threadIdx.x < kBQb) {
+    const int r = q0 + threadIdx.x;
+    Ls[threadIdx.x] = r < sq ? lse[(bb * h + hh) * sq + r] : 0.f;
+    Ds[threadIdx.x] = r < sq ? D[(bb * h + hh) * sq + r] : 0.f;
+  }
+  float adq[4][DPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) adq[i][j] = 0.f;
+
+  int kv_end = skv;  // keys past the tile's last query are masked for all its rows
+  if (causal) {
+    const long long last = (long long)q_offset + min(q0 + kBQb, sq);
+    kv_end = (int)(last < skv ? last : skv);
+  }
+  const T* kb = k + bb * st.k[0] + kh * st.k[1];
+  const T* vb = v + bb * st.v[0] + kh * st.v[1];
+  for (int k0 = 0; k0 < kv_end; k0 += kBKb) {
+    __syncthreads();  // the previous tile's K and dS are no longer read
+    load_tile<T, HDP, RS>(Ks, kb, st.k[2], k0, kBKb, skv, hd);
+    load_tile<T, HDP, RS>(Vs, vb, st.v[2], k0, kBKb, skv, hd);
+    __syncthreads();
+    p_ds_tile<HDP, RS, PS>(Qs, dOs, Ks, Vs, Ls, Ds, nullptr, dSs, q0, k0, sq, skv, causal,
+                           q_offset, scale);
+    __syncthreads();
+    const int c_end = min(kBKb, skv - k0);  // keys past skv have dS = 0
+    for (int c = 0; c < c_end; ++c) {
+      float sa[4], ka[DPT];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sa[i] = dSs[(ty + 16 * i) * PS + c];
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) ka[j] = Ks[c * RS + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DPT; ++j) adq[i][j] = fmaf(sa[i], ka[j], adq[i][j]);
+    }
+  }
+  T* dqb = dq + bb * st.dq[0] + hh * st.dq[1];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= sq) continue;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      const int d = tx + 16 * j;
+      if (d < hd) dqb[(long long)row * st.dq[2] + d] = from_f32<T>(adq[i][j] * scale);
+    }
+  }
+}
+
+template <int DPT>
+constexpr int bwd_smem_bytes(bool dkdv) {
+  return (int)sizeof(float) *
+         ((kBKb + kBKb + kBQb + kBQb) * (DPT * 16 + 1) + (dkdv ? 2 : 1) * kBQb * (kBKb + 1) +
+          2 * kBQb);
+}
+
+template <typename T, int DPT>
+int launch_bwd(const T* q, const T* k, const T* v, const T* o, const T* dout, const float* lse,
+               float* D, T* dq, T* dk, T* dv, const BwdStrides& st, int b, int h, int kvh,
+               int sq, int skv, int hd, int causal, int q_offset, float scale,
+               cudaStream_t stream) {
+  const int rep = h / kvh;
+  const long long n_rows = (long long)b * h * sq;
+  const int rows_per_block = kBwdThreads / 32;
+  const long long dot_blocks = (n_rows + rows_per_block - 1) / rows_per_block;
+  if (dot_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_attention_bwd_dot_kernel<T><<<(unsigned)dot_blocks, kBwdThreads, 0, stream>>>(
+      o, dout, D, st, h, sq, hd, n_rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int smem_kv = bwd_smem_bytes<DPT>(true);
+  err = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<T, DPT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  if (err != cudaSuccess) return err;
+  flash_attention_bwd_dkdv_kernel<T, DPT>
+      <<<dim3((skv + kBKb - 1) / kBKb, kvh, b), kBwdThreads, smem_kv, stream>>>(
+          q, k, v, dout, lse, D, dk, dv, st, h, rep, sq, skv, hd, causal, q_offset, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int smem_q = bwd_smem_bytes<DPT>(false);
+  err = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<T, DPT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  if (err != cudaSuccess) return err;
+  flash_attention_bwd_dq_kernel<T, DPT>
+      <<<dim3((sq + kBQb - 1) / kBQb, h, b), kBwdThreads, smem_q, stream>>>(
+          q, k, v, dout, lse, D, dq, st, h, rep, sq, skv, hd, causal, q_offset, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                 const float* lse, float* D, void* dq, void* dk, void* dv, const BwdStrides& st,
+                 int b, int h, int kvh, int sq, int skv, int hd, int causal, int q_offset,
+                 float scale, cudaStream_t s) {
+  const T* q_ = static_cast<const T*>(q);
+  const T* k_ = static_cast<const T*>(k);
+  const T* v_ = static_cast<const T*>(v);
+  const T* o_ = static_cast<const T*>(o);
+  const T* d_ = static_cast<const T*>(dout);
+  T* dq_ = static_cast<T*>(dq);
+  T* dk_ = static_cast<T*>(dk);
+  T* dv_ = static_cast<T*>(dv);
+#define REPRO_FAB(DPT)                                                                   \
+  case DPT:                                                                               \
+    return launch_bwd<T, DPT>(q_, k_, v_, o_, d_, lse, D, dq_, dk_, dv_, st, b, h, kvh, sq, \
+                              skv, hd, causal, q_offset, scale, s)
+  switch ((hd + 15) / 16) {
+    REPRO_FAB(1); REPRO_FAB(2); REPRO_FAB(3); REPRO_FAB(4);
+    REPRO_FAB(5); REPRO_FAB(6); REPRO_FAB(7); REPRO_FAB(8);
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_FAB
+}
+
 }  // namespace
 
 extern "C" {
 
 // strides: 12 int64 (batch, head, seq) strides of q, k, v, o, in elements.
+// lse: null, or a contiguous (b, h, sq) fp32 tensor that takes each query
+// row's log-sum-exp of its scaled, masked logits (the backward's input).
 // dtype: 0 float32, 1 bfloat16 (q, k, v and o share it).  bfloat16 needs
 // hd % 8 == 0, 16-byte aligned q, k and v and strides of a multiple of 16
 // bytes (the TMA's terms); the wrapper checks them before it calls.
-int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
+int flash_attention_launch(const void* q, const void* k, const void* v, void* o, float* lse,
                            const long long* strides, int b, int h, int kvh, int sq,
                            int skv, int hd, int dtype, int causal, int q_offset,
                            float scale, void* stream) {
@@ -739,7 +1126,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
       st.v[i] = strides[6 + i];
       st.o[i] = strides[9 + i];
     }
-    return dispatch_fp32(q, k, v, o, st, b, h, rep, sq, skv, hd, causal, q_offset, scale, s);
+    return dispatch_fp32(q, k, v, o, lse, st, b, h, rep, sq, skv, hd, causal, q_offset, scale, s);
   }
   if (dtype != 1 || hd % 8 != 0) return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
@@ -748,7 +1135,12 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
   if (err == cudaSuccess) err = encode_map(&tv, v, hd, skv, kvh, b, strides + 6, kBK);
   if (err != cudaSuccess) return err;
 #define REPRO_FA16(NS) \
-  case NS: return launch_bf16<NS>(tq, tk, tv, o, strides + 9, b, h, rep, sq, skv, hd, causal, q_offset, scale, s)
+  case NS:                                                                        \
+    return lse == nullptr                                                         \
+        ? launch_bf16<NS, false>(tq, tk, tv, o, lse, strides + 9, b, h, rep, sq, skv, hd, \
+                                 causal, q_offset, scale, s)                      \
+        : launch_bf16<NS, true>(tq, tk, tv, o, lse, strides + 9, b, h, rep, sq, skv, hd, \
+                                causal, q_offset, scale, s)
   switch ((hd + kSlab - 1) / kSlab) {
     REPRO_FA16(1); REPRO_FA16(2); REPRO_FA16(3); REPRO_FA16(4);
     REPRO_FA16(5); REPRO_FA16(6); REPRO_FA16(7); REPRO_FA16(8);
@@ -778,6 +1170,42 @@ int flash_attention_probe_launch(const void* q, const void* k, const void* v, fl
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_PROBE
+}
+
+// The backward of attention: given q, k, v, the forward's output o and its
+// lse (contiguous (b, h, sq) fp32), and do, write dq (q's shape) and dk, dv
+// (k's shape), all of q's dtype (0 float32, 1 bfloat16).  strides: 24 int64
+// (batch, head, seq) strides in elements of q, k, v, o, do, dq, dk, dv.  D
+// is a (b, h, sq) fp32 scratch tensor.  Three launches on the stream: D =
+// rowsum(do o), then dK/dV, then dQ; no atomics, so the result is the same
+// from run to run.
+int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
+                               const void* dout, const float* lse, float* D, void* dq, void* dk,
+                               void* dv, const long long* strides, int b, int h, int kvh, int sq,
+                               int skv, int hd, int dtype, int causal, int q_offset, float scale,
+                               void* stream) {
+  if (b == 0 || h == 0 || sq == 0) return cudaSuccess;
+  if (kvh <= 0 || h % kvh != 0 || skv <= 0 || hd <= 0 || hd > 128 || q_offset < 0)
+    return cudaErrorInvalidValue;
+  BwdStrides st;
+  for (int i = 0; i < 3; ++i) {
+    st.q[i] = strides[i];
+    st.k[i] = strides[3 + i];
+    st.v[i] = strides[6 + i];
+    st.o[i] = strides[9 + i];
+    st.dout[i] = strides[12 + i];
+    st.dq[i] = strides[15 + i];
+    st.dk[i] = strides[18 + i];
+    st.dv[i] = strides[21 + i];
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_bwd<float>(q, k, v, o, dout, lse, D, dq, dk, dv, st, b, h, kvh, sq, skv, hd,
+                               causal, q_offset, scale, s);
+  if (dtype == 1)
+    return dispatch_bwd<__nv_bfloat16>(q, k, v, o, dout, lse, D, dq, dk, dv, st, b, h, kvh, sq,
+                                       skv, hd, causal, q_offset, scale, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -9,7 +9,9 @@ reference kernel, any sq and skv are taken (a ragged tail is masked) and hd
 is not padded outside the kernel.
 
 ``flash_attention_fwd`` launches a kernel on a CUDA tensor or raises; on a
-CPU tensor it runs ``flash_attention_plain``.  The dtype picks the kernel:
+CPU tensor it runs ``flash_attention_plain``.  With ``return_lse`` it also
+returns each query row's log-sum-exp (fp32, (b, h, sq)), which the
+backward takes.  The dtype picks the kernel:
 bfloat16 runs ``flash_attention_kernel`` (tensor cores through ``wgmma``, K
 and V streamed by TMA; hd a multiple of 8, 16-byte aligned tensors and
 strides), float32 runs ``flash_attention_fp32_kernel`` (CUDA cores, which
@@ -17,6 +19,15 @@ keep the reference's fp32 products).  Any strides over the first three
 dimensions and a contiguous last one are taken: the model's (b, s, h, hd)
 tensors pass as ``.transpose(1, 2)`` views without a copy.  It counts its
 launches in ``flash_attention_fwd.launches``.
+
+The gradient: ``flash_attention`` is the differentiable entry point, a
+``torch.autograd.Function`` when an input needs a gradient.  Its forward
+keeps the lse; its backward is ``flash_attention_bwd``, which on a CUDA
+tensor launches the hand-written backward kernels of the same source
+(``flash_attention_bwd_launch``: D = rowsum(do o), then dK/dV, then dQ)
+and counts one in ``flash_attention_bwd.launches`` per call, and on a CPU
+tensor runs ``flash_attention_bwd_plain``.  The JAX package has no
+counterpart: its trainer differentiates its jnp attention.
 """
 from __future__ import annotations
 
@@ -26,35 +37,85 @@ import torch
 
 from . import _build
 
-__all__ = ["NEG_INF", "MAX_HEAD_DIM", "flash_attention_fwd", "flash_attention_plain",
-           "wgmma_layout_probe"]
+__all__ = ["NEG_INF", "MAX_HEAD_DIM", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_fwd", "flash_attention_plain",
+           "flash_attention_plain_lse", "wgmma_layout_probe"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128  # bf16: 8 slabs of 16 columns; fp32: hd / 16 columns per thread
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int, scale: float
+            ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """fp32 scores of the pre-scaled query against the group's keys
+    (b, h, sq, skv), and the causal mask (True where a key is hidden) or
+    None."""
+    sq, skv = q.shape[2], k.shape[2]
+    kf = k.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    s = torch.matmul(q.float() * scale, kf.transpose(-1, -2))
+    if not causal:
+        return s, None
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    kpos = torch.arange(skv, device=q.device)
+    return s, qpos[:, None] < kpos[None, :]
+
+
+def flash_attention_plain_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              causal: bool = True, q_offset: int = 0,
+                              scale: float | None = None
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in PyTorch ops: fp32 scores of the pre-scaled
+    query, logits masked to -1e30, softmax statistics in fp32, the
+    denominator clamped at 1e-30, the output in q's dtype; and each query
+    row's log-sum-exp m + log(l), fp32 (b, h, sq)."""
+    hd = q.shape[-1]
+    scale = hd ** -0.5 if scale is None else scale
+    s, mask = _scores(q, k, causal, q_offset, scale)
+    if mask is not None:
+        s = s.masked_fill(mask, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    vf = v.float().repeat_interleave(q.shape[1] // v.shape[1], dim=1)
+    out = (torch.matmul(p, vf) / l).to(q.dtype)
+    return out, (m + torch.log(l))[..., 0]
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, q_offset: int = 0,
                           scale: float | None = None) -> torch.Tensor:
-    """The kernel's function in PyTorch ops: fp32 scores of the pre-scaled
-    query, logits masked to -1e30, softmax statistics in fp32, the
-    denominator clamped at 1e-30, the output in q's dtype."""
+    """``flash_attention_plain_lse``'s output alone."""
+    return flash_attention_plain_lse(q, k, v, causal, q_offset, scale)[0]
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                              causal: bool = True, q_offset: int = 0,
+                              scale: float | None = None
+                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' function in PyTorch ops, in fp32: D = rowsum(do
+    o), P = exp(scale q k^T - lse) with the masked entries 0, dV = P^T do
+    and dK = scale dS^T q summed over each KV group's query heads,
+    dS = P (do v^T - D), dQ = scale dS k.  Returns (dq in q's dtype, dk and
+    dv in k's)."""
     b, h, sq, hd = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     rep = h // kvh
     scale = hd ** -0.5 if scale is None else scale
-    kf = k.float().repeat_interleave(rep, dim=1)
+    s, mask = _scores(q, k, causal, q_offset, scale)
+    p = torch.exp(s - lse.float()[..., None])
+    if mask is not None:
+        p = p.masked_fill(mask, 0.0)
+    dof = do.float()
+    d = (dof * o.float()).sum(dim=-1, keepdim=True)
     vf = v.float().repeat_interleave(rep, dim=1)
-    s = torch.matmul(q.float() * scale, kf.transpose(-1, -2))  # (b, h, sq, skv)
-    if causal:
-        qpos = q_offset + torch.arange(sq, device=q.device)
-        kpos = torch.arange(skv, device=q.device)
-        s = s.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    return (torch.matmul(p, vf) / torch.clamp(l, min=1e-30)).to(q.dtype)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - d)
+    kf = k.float().repeat_interleave(rep, dim=1)
+    dq = torch.matmul(ds, kf) * scale
+    dk = (torch.matmul(ds.transpose(-1, -2), q.float()) * scale).view(b, kvh, rep, skv, hd)
+    dv = torch.matmul(p.transpose(-1, -2), dof).view(b, kvh, rep, skv, hd)
+    return dq.to(q.dtype), dk.sum(dim=2).to(k.dtype), dv.sum(dim=2).to(k.dtype)
 
 
 def _tma_strides(name: str, t: torch.Tensor) -> list[int]:
@@ -77,13 +138,14 @@ def _tma_strides(name: str, t: torch.Tensor) -> list[int]:
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, q_offset: int = 0,
-                        scale: float | None = None) -> torch.Tensor:
+                        scale: float | None = None, return_lse: bool = False):
     """Attention over (b, h, sq, hd) queries and (b, kv, skv, hd) keys and
-    values -> (b, h, sq, hd) in q's dtype.  ``scale`` defaults to
+    values -> (b, h, sq, hd) in q's dtype, and with ``return_lse`` also the
+    rows' log-sum-exp (fp32, (b, h, sq)).  ``scale`` defaults to
     ``hd ** -0.5``.  Launches ``flash_attention_kernel`` (bf16: one resident
     block per SM walking the 128-query tiles of every head) or
     ``flash_attention_fp32_kernel`` (fp32: one block per 64-query tile) on a
-    CUDA tensor; runs ``flash_attention_plain`` on a CPU tensor."""
+    CUDA tensor; runs ``flash_attention_plain_lse`` on a CPU tensor."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention_fwd takes (b, h, sq, hd) and (b, kv, skv, hd) "
                          f"tensors, got {tuple(q.shape)} and {tuple(k.shape)}")
@@ -99,7 +161,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     scale = hd ** -0.5 if scale is None else float(scale)
     if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, q_offset, scale)
+        out, lse = flash_attention_plain_lse(q, k, v, causal, q_offset, scale)
+        return (out, lse) if return_lse else out
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_fwd runs on a CUDA or CPU tensor, got {dev}")
     if q.dtype not in _DTYPES:
@@ -121,16 +184,107 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         st = [t.stride(i) for t in (q, k, v) for i in range(3)]
     strides = (ctypes.c_longlong * 12)(*st, *(out.stride(i) for i in range(3)))
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev) if return_lse else None
     err = _build.library().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), strides,
         b, h, kvh, sq, skv, hd, _DTYPES[q.dtype], int(bool(causal)), int(q_offset),
         scale, torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(err, "flash_attention_kernel")
     flash_attention_fwd.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
+                        q_offset: int = 0, scale: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``flash_attention_fwd`` at (q, k, v), given its output
+    ``o``, its ``lse`` and the output's gradient ``do`` (all (b, heads, seq,
+    hd) with any strides over the first three dimensions) -> (dq, dk, dv),
+    dq in q's dtype and (b, sq, h, hd) memory order, dk and dv in k's dtype
+    and (b, skv, kv, hd) order, each seen as (b, heads, seq, hd).  Launches
+    the backward kernels (fp32 arithmetic; float32 or bfloat16 storage, hd
+    up to 128) on a CUDA tensor; runs ``flash_attention_bwd_plain`` on a CPU
+    tensor."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    dev = q.device
+    _build.check_tensor("q", q, (b, h, sq, hd), (q.dtype,), dev, contiguous=False)
+    for name, t in (("k", k), ("v", v)):
+        _build.check_tensor(name, t, (b, kvh, skv, hd), (q.dtype,), dev, contiguous=False)
+    for name, t in (("o", o), ("do", do)):
+        _build.check_tensor(name, t, (b, h, sq, hd), (q.dtype,), dev, contiguous=False)
+    _build.check_tensor("lse", lse, (b, h, sq), (torch.float32,), dev)
+    if h % kvh:
+        raise ValueError(f"{h} query heads do not group over {kvh} KV heads")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    scale = hd ** -0.5 if scale is None else float(scale)
+    if dev.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal, q_offset, scale)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on a CUDA or CPU tensor, got {dev}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"the attention backward kernel takes float32 or bfloat16, got {q.dtype}")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"the attention backward kernel takes hd <= {MAX_HEAD_DIM}, got {hd}")
+    if skv == 0:
+        raise ValueError("flash_attention_bwd needs at least one key")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous in its last dimension")
+    dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=dev).transpose(1, 2)
+    dk = torch.empty((b, skv, kvh, hd), dtype=q.dtype, device=dev).transpose(1, 2)
+    dv = torch.empty((b, skv, kvh, hd), dtype=q.dtype, device=dev).transpose(1, 2)
+    d_rows = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 24)(*(t.stride(i) for t in (q, k, v, o, do, dq, dk, dv)
+                                         for i in range(3)))
+    err = _build.library().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), d_rows.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        strides, b, h, kvh, sq, skv, hd, _DTYPES[q.dtype], int(bool(causal)), int(q_offset),
+        scale, torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on_error(err, "flash_attention_bwd_kernel")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention with its gradient: the forward kernel (keeping the lse) and
+    the backward kernels, or their plain versions on a CPU tensor."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, scale):
+        o, lse = flash_attention_fwd(q, k, v, causal, q_offset, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, q_offset, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.to(q.dtype), *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                    q_offset: int = 0, scale: float | None = None) -> torch.Tensor:
+    """``flash_attention_fwd``, differentiable: where autograd records and an
+    input needs a gradient, through ``_FlashAttention`` (the forward keeps
+    its lse for ``flash_attention_bwd``); else the forward alone, as serving
+    calls it."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, q_offset, scale)
+    return flash_attention_fwd(q, k, v, causal, q_offset, scale)
 
 
 def wgmma_layout_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor

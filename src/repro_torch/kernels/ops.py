@@ -22,10 +22,11 @@ __all__ = ["flash_attention", "ssd_scan"]
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Flash attention with GQA: q (b, sq, h, hd), k/v (b, skv, kv, hd) ->
-    (b, sq, h, hd) in q's dtype."""
+    (b, sq, h, hd) in q's dtype; differentiable (``_fa.flash_attention``:
+    the backward kernels on a CUDA tensor)."""
     hd = q.shape[-1]
-    o = _fa.flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                causal=causal, q_offset=q_offset, scale=hd ** -0.5)
+    o = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            causal=causal, q_offset=q_offset, scale=hd ** -0.5)
     return o.transpose(1, 2)
 
 

@@ -103,7 +103,9 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Launches ``ssd_intra_chunk_kernel`` (bf16: one block per chunk and
     head) or ``ssd_intra_chunk_fp32_kernel`` (fp32: one block per 64-row
     tile, chunk and head, plus one per chunk and head for the state) on a
-    CUDA tensor; runs ``ssd_intra_chunk_plain`` on a CPU tensor."""
+    CUDA tensor; runs ``ssd_intra_chunk_plain`` on a CPU tensor.  A CUDA
+    input that needs a gradient raises ``NotImplementedError`` before any
+    launch: the kernel has no backward yet."""
     if x.dim() != 3 or B.dim() != 3:
         raise ValueError(f"ssd_intra_chunk takes (bh, s, p) and (bh, s, n) tensors, "
                          f"got {tuple(x.shape)} and {tuple(B.shape)}")
@@ -121,6 +123,11 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_intra_chunk_plain(x, dt, A, B, C, chunk)
     if dev.type != "cuda":
         raise ValueError(f"ssd_intra_chunk runs on a CUDA or CPU tensor, got {dev}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C)):
+        raise NotImplementedError(
+            "ssd_intra_chunk has no backward kernel yet (ROADMAP.md, Queue 1, item 16: the "
+            "SSD intra-chunk backward): the ssm and hybrid families train on the CPU only; "
+            "on the card their forward runs without gradients (torch.no_grad)")
     if x.dtype == torch.bfloat16:
         check_bf16_domain(x, dt, B, C, chunk)
     elif p > MAX_HEADDIM:

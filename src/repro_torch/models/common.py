@@ -1,6 +1,6 @@
 """Shared model components: the seeded initializer, RMS norm, rotary
-embeddings (with Qwen2-VL's M-RoPE) and the SwiGLU MLP (the port's copy
-of ``repro.models.common``).
+embeddings (with Qwen2-VL's M-RoPE), the SwiGLU MLP, the training loss and
+activation checkpointing (the port's copy of ``repro.models.common``).
 
 Layers are plain functions ``f(p, x, ...)`` over a parameter mapping ``p``:
 a dict of tensors or a ``ParamModule`` (an ``nn.Module`` whose parameters
@@ -10,12 +10,15 @@ loop over a ``ModuleList`` in the port.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 __all__ = [
     "DTYPES",
@@ -25,6 +28,8 @@ __all__ = [
     "rope_frequencies",
     "apply_rope",
     "swiglu",
+    "cross_entropy_loss",
+    "remat",
 ]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -129,3 +134,63 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor
     h = torch.einsum("bsd,df->bsf", x, w1)
     g = torch.einsum("bsd,df->bsf", x, w3)
     return torch.einsum("bsf,fd->bsd", h * F.silu(g), w2)
+
+
+# ------------------------------------------------------------------------------
+# Loss
+# ------------------------------------------------------------------------------
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
+                       z_loss: float = 1e-4) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Next-token cross-entropy over (b, s, vocab_padded) logits and (b, s)
+    labels, in fp32: the padded vocab masked to -1e30, the log-sum-exp, the
+    gold logit, z-loss ``z_loss * lse^2``.  Returns (loss, metrics): the
+    differentiable mean loss, and its ``loss``, ``nll``, ``z_loss`` and
+    ``accuracy`` (argmax over the masked logits, the first index among
+    ties, as ``jnp.argmax``), all but ``loss`` detached."""
+    logits = logits.float()
+    vpad = logits.shape[-1]
+    if vpad > vocab:
+        pad = torch.arange(vpad, device=logits.device) >= vocab
+        logits = logits.masked_fill(pad, -1e30)
+    labels = labels.long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    nll = lse - gold
+    zl = z_loss * lse.square()
+    loss = (nll + zl).mean()
+    with torch.no_grad():
+        acc = (logits.argmax(dim=-1) == labels).float().mean()
+    return loss, {"loss": loss, "nll": nll.detach().mean(), "z_loss": zl.detach().mean(),
+                  "accuracy": acc}
+
+
+# ------------------------------------------------------------------------------
+# Activation checkpointing (the reference's ``jax.checkpoint`` policies)
+# ------------------------------------------------------------------------------
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of products
+    without a batch dimension (``mm``, and ``bmm`` over a batch of one, as
+    ``torch.einsum`` lowers a weight product), recompute the rest."""
+    if op in _MATMULS or (op == torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under activation checkpointing: ``"none"`` runs it as it is;
+    ``"dots"`` keeps its weight products' outputs and recomputes the rest in
+    the backward pass (a selective checkpoint); any other policy
+    (``"full"``) keeps only its inputs.  Non-reentrant
+    ``torch.utils.checkpoint``: the recompute runs the same ops, so the
+    numbers do not change."""
+    if policy == "none":
+        return fn
+    if policy == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts, _save_matmuls)
+        return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=ctx)
+    return functools.partial(checkpoint, fn, use_reentrant=False)

@@ -12,8 +12,9 @@ card, non-causal where the reference's is).
 Decode: the self-attention KV cache grows; the cross-attention K/V are
 computed once from the encoder output at prefill and stay fixed, and each
 step attends to all of them (``decode_attention`` with an all-true mask).
-Caches are written in place, as the dense path does.  Loss and training are
-not ported yet (ROADMAP, Queue 1).
+Caches are written in place, as the dense path does.  Training:
+``encdec_loss``, each decoder layer checkpointed unless ``remat`` is
+"none" (the reference's ``jax.checkpoint``; the encoder is not).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from .attention import attention, decode_attention
-from .common import DTYPES, Initializer, ParamModule, rms_norm, swiglu
+from .common import DTYPES, Initializer, ParamModule, cross_entropy_loss, remat, rms_norm, swiglu
 from .transformer import (_attn_params, _mlp_params, _positions_for, attn_block,
                           attn_block_decode, padded_dims)
 
@@ -33,6 +34,8 @@ __all__ = [
     "encdec_init_cache",
     "encdec_prefill",
     "encdec_decode_step",
+    "encdec_train_logits",
+    "encdec_loss",
 ]
 
 
@@ -187,3 +190,27 @@ def encdec_decode_step(params: EncDecLM, tokens: torch.Tensor, cache: dict, cfg:
     x = rms_norm(x, params["final_norm"])
     cache["index"] = idx + 1
     return torch.einsum("bsd,dv->bsv", x, params["head"]), cache
+
+
+def encdec_train_logits(params: EncDecLM, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Decoder logits at every position (b, s, vocab_padded) of ``tokens``
+    against the encoded ``frames``."""
+    enc_out = encode(params, batch["frames"], cfg)
+    x = params["embed"][batch["tokens"]]
+    b, s = x.shape[:2]
+    positions = _positions_for(b, s, x.device)
+
+    def body(lp, x):
+        enc_k, enc_v = _cross_kv(lp["cross"], enc_out)
+        return _dec_layer(lp, x, positions, enc_k, enc_v, cfg)[0]
+
+    run = remat(body, "none" if cfg.remat == "none" else "full")
+    for lp in params["dec_blocks"]:
+        x = run(lp, x)
+    x = rms_norm(x, params["final_norm"])
+    return torch.einsum("bsd,dv->bsv", x, params["head"])
+
+
+def encdec_loss(params: EncDecLM, batch: dict, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    return cross_entropy_loss(encdec_train_logits(params, batch, cfg), batch["labels"],
+                              cfg.vocab)

@@ -8,8 +8,11 @@ Layer layout for 54 layers, period 6 (9 stages):
 Decode state: per-layer SSM and conv states plus one KV cache per stage:
 each application of the shared block sees a different depth, so the caches
 are distinct though the weights are shared.  The reference's ``lax.scan``
-over stages and layers is a Python loop here; loss and training are not
-ported yet (ROADMAP, Queue 1).
+over stages and layers is a Python loop here.  Training: ``hybrid_loss``,
+each stage (its Mamba layers and the shared block) checkpointed unless
+``remat`` is "none", as the reference's ``jax.checkpoint`` of a stage.
+On the card the SSD kernel has no backward yet, so the family trains on
+the CPU only (``ssd_scan.ssd_intra_chunk`` refuses a gradient).
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from .common import DTYPES, Initializer, ParamModule, rms_norm
+from .common import DTYPES, Initializer, ParamModule, cross_entropy_loss, remat, rms_norm
 from .ssm import MambaBlock, init_ssm_state, mamba_block, mamba_decode_step
 from .transformer import (DenseBlock, _positions_for, dense_layer, dense_layer_decode,
                           padded_dims)
@@ -29,6 +32,8 @@ __all__ = [
     "hybrid_init_cache",
     "hybrid_prefill",
     "hybrid_decode_step",
+    "hybrid_train_logits",
+    "hybrid_loss",
 ]
 
 
@@ -149,3 +154,27 @@ def hybrid_decode_step(params: HybridLM, tokens: torch.Tensor, cache: dict, cfg:
     logits = torch.einsum("bsd,dv->bsv", x, params["head"])
     cache["index"] = idx + 1
     return logits, cache
+
+
+def hybrid_train_logits(params: HybridLM, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Logits at every position (b, s, vocab_padded)."""
+    n_stage, period = _stages(cfg)
+    x = params["embed"][batch["tokens"]]
+    b, seq = x.shape[:2]
+    positions = _positions_for(b, seq, x.device)
+
+    def stage(x, first):
+        for layer in params["mamba"][first:first + period]:
+            x = mamba_block(layer, x, cfg)[0]
+        return dense_layer(params["shared"], x, positions, cfg)[0]
+
+    run = remat(stage, "none" if cfg.remat == "none" else "full")
+    for st in range(n_stage):
+        x = run(x, st * period)
+    x = rms_norm(x, params["final_norm"])
+    return torch.einsum("bsd,dv->bsv", x, params["head"])
+
+
+def hybrid_loss(params: HybridLM, batch: dict, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    return cross_entropy_loss(hybrid_train_logits(params, batch, cfg), batch["labels"],
+                              cfg.vocab)

@@ -8,8 +8,10 @@ the text as precomputed vectors, M-RoPE position streams as inputs), and
 the attention block the hybrid and enc-dec families share.  The reference
 stacks the layers (a leading L dim) and applies them with ``lax.scan``;
 here each layer is a ``DenseBlock`` in the ``blocks`` ModuleList of a
-``DenseLM`` and a Python loop applies them.  Loss and training are not
-ported yet (ROADMAP, Queue 1).
+``DenseLM`` and a Python loop applies them.  Training: ``dense_loss`` over
+``dense_train_logits`` (logits at every position, the MoE router's aux
+loss summed over the layers), each layer under the config's ``remat``
+policy.
 
 Weights keep the reference's layouts: ``wq`` (d, h, hd), ``wk``/``wv``
 (d, kv, hd), ``wo`` (h, hd, d), so the einsums read the same.  Head
@@ -23,7 +25,8 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from .attention import attention, decode_attention
-from .common import DTYPES, Initializer, ParamModule, apply_rope, rms_norm, swiglu
+from .common import (DTYPES, Initializer, ParamModule, apply_rope, cross_entropy_loss, remat,
+                     rms_norm, swiglu)
 from .moe import init_moe_ffn, moe_ffn
 
 __all__ = [
@@ -40,6 +43,8 @@ __all__ = [
     "dense_init_cache",
     "dense_prefill",
     "dense_decode_step",
+    "dense_train_logits",
+    "dense_loss",
 ]
 
 TP_MULTIPLE = 16  # the reference pads heads for its production model axis
@@ -158,12 +163,13 @@ def init_dense(cfg: ArchConfig, seed: int, device) -> DenseLM:
     return DenseLM(embed, blocks, ini.ones((d,)), ini.normal((d, vp)))
 
 
-def _ffn(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The dense SwiGLU or the MoE FFN (whose router aux loss serving drops)."""
+def _ffn(p, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The dense SwiGLU or the MoE FFN: (y, the router's aux loss, or None
+    for a dense FFN).  Serving drops the aux; training sums it."""
     if cfg.moe is not None:
-        return moe_ffn(p["moe"], x, cfg)[0]
+        return moe_ffn(p["moe"], x, cfg)
     mlp = p["mlp"]
-    return swiglu(x, mlp["w1"], mlp["w3"], mlp["w2"])
+    return swiglu(x, mlp["w1"], mlp["w3"], mlp["w2"]), None
 
 
 def _positions_for(b: int, seq: int, device, mrope: bool = False) -> torch.Tensor:
@@ -190,7 +196,7 @@ def dense_layer(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig
     which serving does not read.)"""
     h, kv = attn_block(p["attn"], rms_norm(x, p["ln1"]), positions, cfg)
     x = x + h
-    return x + _ffn(p, rms_norm(x, p["ln2"]), cfg), kv
+    return x + _ffn(p, rms_norm(x, p["ln2"]), cfg)[0], kv
 
 
 def dense_layer_decode(p, x: torch.Tensor, position: torch.Tensor, idx: int,
@@ -201,7 +207,7 @@ def dense_layer_decode(p, x: torch.Tensor, position: torch.Tensor, idx: int,
     h, _, _ = attn_block_decode(p["attn"], rms_norm(x, p["ln1"]), position, idx,
                                 k_cache, v_cache, cfg)
     x = x + h
-    return x + _ffn(p, rms_norm(x, p["ln2"]), cfg)
+    return x + _ffn(p, rms_norm(x, p["ln2"]), cfg)[0]
 
 
 def dense_init_cache(cfg: ArchConfig, batch: int, max_seq: int,
@@ -254,3 +260,73 @@ def dense_decode_step(params: DenseLM, tokens: torch.Tensor, cache: dict, cfg: A
     x = rms_norm(x, params["final_norm"])
     cache["index"] = idx + 1
     return torch.einsum("bsd,dv->bsv", x, params["head"]), cache
+
+
+# ------------------------------------------------------------------------------
+# Training
+# ------------------------------------------------------------------------------
+
+def _attn_half(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The residual after a layer's attention (the reference's
+    ``resid_attn``)."""
+    return x + attn_block(p["attn"], rms_norm(x, p["ln1"]), positions, cfg)[0]
+
+
+def _ffn_half(p, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The residual after a layer's FFN (``resid_mlp``) and the MoE router's
+    aux loss (a 0-d fp32 zero for a dense FFN)."""
+    y, aux = _ffn(p, rms_norm(x, p["ln2"]), cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
+
+
+def dense_train_layer(p, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer on a full sequence under ``cfg.remat``: (x_out, aux).
+    ``"full"`` and ``"dots"`` checkpoint the whole layer (``common.remat``);
+    ``"names"`` keeps exactly the two residuals, as the reference's
+    ``save_only_these_names("resid_attn", "resid_mlp")``: each half is a
+    checkpointed segment, so a residual is kept as the next segment's
+    input and everything else is recomputed."""
+    if cfg.remat == "names":
+        x = remat(_attn_half, "full")(p, x, positions, cfg)
+        return remat(_ffn_half, "full")(p, x, cfg)
+
+    def layer(p, x, positions):
+        return _ffn_half(p, _attn_half(p, x, positions, cfg), cfg)
+
+    return remat(layer, cfg.remat)(p, x, positions)
+
+
+def dense_train_logits(params, batch: dict, cfg: ArchConfig
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Logits at every position (b, s, vocab_padded) and the router aux
+    summed over the layers, from a batch of tensors: ``tokens``, and for a
+    vlm ``img_embeds`` (before the text) and ``positions`` if given."""
+    x = _embed_inputs(params, batch["tokens"], cfg, batch.get("img_embeds"))
+    b, seq = x.shape[:2]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _positions_for(b, seq, x.device, cfg.mrope)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in params["blocks"]:
+        x, a = dense_train_layer(layer, x, positions, cfg)
+        aux = aux + a
+    x = rms_norm(x, params["final_norm"])
+    return torch.einsum("bsd,dv->bsv", x, params["head"]), aux
+
+
+def dense_loss(params, batch: dict, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    """(loss, metrics): the cross-entropy of the text positions (a vlm's
+    image positions are cut), plus ``router_aux_coef * aux / n_layers``
+    for an MoE config (then also in the metrics as ``router_aux``)."""
+    logits, aux = dense_train_logits(params, batch, cfg)
+    if cfg.family == "vlm" and "img_embeds" in batch:
+        logits = logits[:, batch["img_embeds"].shape[1]:]
+    loss, metrics = cross_entropy_loss(logits, batch["labels"], cfg.vocab)
+    if cfg.moe is not None:
+        aux_term = cfg.moe.router_aux_coef * aux / cfg.n_layers
+        loss = loss + aux_term
+        metrics = dict(metrics, loss=loss, router_aux=aux_term.detach())
+    return loss, metrics

@@ -7,14 +7,16 @@ the six families (``dense``, ``moe``, ``vlm``, ``ssm``, ``hybrid``,
     cache = model.init_cache(batch, max_seq)
     logits, cache = model.prefill(params, batch, max_seq)
     logits, cache = model.decode_step(params, tokens, cache)
+    loss, metrics = model.loss(params, batch)      # differentiable, for training
 
 A batch is the reference's dict of numpy arrays or tensors: ``tokens``
 (b, s); for vlm optionally ``img_embeds`` (b, img_tokens, d) and
 ``positions`` (3, b, img_tokens + s); for encdec ``frames``
 (b, enc_seq, d), without which prefill raises ``ValueError`` (the
-reference raises ``KeyError``).  ``device=None`` is the CUDA device and
-raises where there is none; ``"cpu"`` runs the kernels' plain versions.
-Loss and training are not ported yet (ROADMAP, Queue 1).
+reference raises ``KeyError``).  A training batch adds ``labels`` (b, s).
+``device=None`` is the CUDA device and raises where there is none;
+``"cpu"`` runs the kernels' plain versions.  ``loss`` records autograd
+(no ``inference_mode``); ``prefill`` and ``decode_step`` do not.
 
 The SSM family (mamba2) lives here, as in the reference: a stack of Mamba2
 layers between the embedding and the head, with an O(1) decode state.
@@ -30,7 +32,7 @@ from torch import nn
 from ..configs.base import PORTED_FAMILIES, ArchConfig
 from ..device import resolve_device
 from . import encdec, hybrid, ssm, transformer
-from .common import DTYPES, Initializer, ParamModule, rms_norm
+from .common import DTYPES, Initializer, ParamModule, cross_entropy_loss, remat, rms_norm
 
 __all__ = ["Model", "SSMLM", "build_model"]
 
@@ -87,6 +89,23 @@ def _ssm_forward(params: SSMLM, tokens: torch.Tensor, cfg: ArchConfig, collect: 
         if collect:
             states.append((st, cv))
     return rms_norm(x, params["final_norm"]), states
+
+
+def _ssm_train_logits(params: SSMLM, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Logits at every position (b, s, vocab_padded), each Mamba2 layer
+    checkpointed unless ``remat`` is "none", as the reference's
+    ``jax.checkpoint`` of a layer."""
+    x = params["embed"][batch["tokens"]]
+    run = remat(lambda layer, x: ssm.mamba_block(layer, x, cfg)[0],
+                "none" if cfg.remat == "none" else "full")
+    for layer in params["mamba"]:
+        x = run(layer, x)
+    x = rms_norm(x, params["final_norm"])
+    return torch.einsum("bsd,dv->bsv", x, params["head"])
+
+
+def _ssm_loss(params: SSMLM, batch: dict, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    return cross_entropy_loss(_ssm_train_logits(params, batch, cfg), batch["labels"], cfg.vocab)
 
 
 def _ssm_prefill(params: SSMLM, tokens: torch.Tensor, cfg: ArchConfig):
@@ -147,6 +166,22 @@ class Model:
         if f == "encdec":
             return encdec.encdec_init_cache(self.cfg, batch, max_seq, device=self.device)
         return hybrid.hybrid_init_cache(self.cfg, batch, max_seq, device=self.device)
+
+    def loss(self, params, batch: dict) -> tuple[torch.Tensor, dict]:
+        """(loss, metrics) of a training batch: the differentiable fp32 mean
+        cross-entropy with z-loss (plus the router's aux term for an MoE
+        config) and its detached metrics.  Gradients reach the parameters
+        that require them (``Trainer`` turns them on)."""
+        f = self.cfg.family
+        b = {name: (_tokens(v, self.device) if name in ("tokens", "labels")
+                    else _tensor(v, self.device)) for name, v in batch.items()}
+        if f in _TRANSFORMER:
+            return transformer.dense_loss(params, b, self.cfg)
+        if f == "ssm":
+            return _ssm_loss(params, b, self.cfg)
+        if f == "encdec":
+            return encdec.encdec_loss(params, b, self.cfg)
+        return hybrid.hybrid_loss(params, b, self.cfg)
 
     @torch.inference_mode()
     def prefill(self, params, batch: dict, max_seq: int):

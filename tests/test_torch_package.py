@@ -40,7 +40,9 @@ def test_port_imports_neither_jax_nor_repro():
     names = {os.path.relpath(p, REPO) for p in files}
     assert {"src/repro_torch/core/layout.py", "src/repro_torch/runtime/failures.py",
             "src/repro_torch/comm/torchcoll.py", "benchmarks/torch_common.py",
-            "benchmarks/torch_run.py"} <= names
+            "benchmarks/torch_run.py", "src/repro_torch/optim/optimizers.py",
+            "src/repro_torch/data/pipeline.py", "src/repro_torch/checkpoint/ckpt.py",
+            "src/repro_torch/train/trainer.py", "src/repro_torch/launch/train.py"} <= names
     bad = {(os.path.relpath(p, REPO), mod) for p in files
            for mod in _imported_roots(p) if mod in ("jax", "jaxlib", "repro")}
     assert not bad, f"forbidden imports: {sorted(bad)}"
@@ -54,7 +56,9 @@ def test_importing_port_loads_neither_jax_nor_repro():
             "repro_torch.kernels._build, "
             "repro_torch.kernels.ops, repro_torch.configs, repro_torch.models, "
             "repro_torch.serve, repro_torch.launch.serve, repro_torch.core.layout, "
-            "repro_torch.runtime, repro_torch.comm.torchcoll, benchmarks.torch_run; "
+            "repro_torch.runtime, repro_torch.comm.torchcoll, benchmarks.torch_run, "
+            "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
+            "repro_torch.train, repro_torch.launch.train; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
