@@ -172,23 +172,27 @@ Phases, in order; any failure raises and exits non-zero:
     (their attention logits reach a std of 60-130 under the reference's
     init, and a free float32 run of whisper-tiny ends O(1) apart; the free
     runs are logged), kimi's routing on both devices equal;
-30. the attention backward kernels (``flash_attention_bwd``: D, dK/dV, dQ)
-    against ``flash_attention_bwd_plain`` on the kernel's own o and lse
-    (relative Frobenius error of dq, dk, dv: 1e-2 in bf16, 1e-5 in fp32) at
-    the training shapes (qwen3-32b: b=4, h=64, kv=8, s=1024, hd=128,
-    causal; whisper-tiny at b=8: the encoder non-causal at s=1500, the
-    decoder at s=448, cross-attention of 448 queries against 1500 keys),
-    GQA, head dims 16-128, ragged tails, q_offset > 0 and fp32; the
-    forward's lse output against the plain forward's; ``ssd_intra_chunk``
-    refusing a CUDA input that needs a gradient; qwen3's and whisper's
-    encoder shapes timed beside their bound and SDPA's backward;
+30. the wgmma fragment layouts of the bf16 attention backward kernels
+    (``wgmma_bwd_layout_probe``, at head dims 16-128), then the backward
+    (``flash_attention_bwd``: D, dK/dV, dQ; bf16 on the tensor cores, fp32
+    on the CUDA cores) against ``flash_attention_bwd_plain`` on the
+    kernel's own o and lse (relative Frobenius error of dq, dk, dv: 1e-2 in
+    bf16, 1e-5 in fp32) at the training shapes (qwen3-32b: b=4, h=64, kv=8,
+    s=1024, hd=128, causal; whisper-tiny at b=8: the encoder non-causal at
+    s=1500, the decoder at s=448, cross-attention of 448 queries against
+    1500 keys), GQA, head dims 16-128, ragged tails, q_offset > 0 and fp32;
+    the forward's lse output against the plain forward's; two calls at
+    qwen3's shape bit for bit; ``ssd_intra_chunk`` refusing a CUDA input
+    that needs a gradient; qwen3's and whisper's encoder shapes timed beside
+    their bound, the split's 7-product floor, SDPA's backward and the
+    CUDA-core design's time;
 31. the main training path: ``Trainer`` on qwen3-32b at full width, depth 2,
     bf16, remat "full", 2 microbatches, AdamW (lr 1e-3, 8 steps, warmup 1),
     ``SyntheticLM`` at seq 1024 and global batch 8, 8 steps: per-step loss,
     grad norm, lr and time, tokens/s, model FLOP/s, peak memory against the
     reckoning, 8 forward and 4 backward attention launches a step, and a
     profile of one more step (busy share, both attention kernels, GEMMs,
-    the loss, the optimizer);
+    the loss, the optimizer, the attention backward's share of the step);
 32. whisper-tiny training at full width and depth (bf16, seq 448, global
     batch 8, 8 steps, a checkpoint every 4): a run that crashes at step 4
     through the failure hook, restored by a fresh ``Trainer`` and trained
@@ -237,7 +241,11 @@ FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 KERNELS = ("bfs_sweep_kernel", "minplus_patch_kernel", "flash_attention_kernel",
            "ssd_intra_chunk_kernel", "flash_attention_bwd_dot_kernel",
+           "flash_attention_bwd_dkdv_bf16_kernel", "flash_attention_bwd_dq_bf16_kernel",
            "flash_attention_bwd_dkdv_kernel", "flash_attention_bwd_dq_kernel")
+# the attention backward's kernels on the bf16 training paths
+BWD_BF16_KERNELS = ("flash_attention_bwd_dot_kernel", "flash_attention_bwd_dkdv_bf16_kernel",
+                    "flash_attention_bwd_dq_bf16_kernel")
 DEV = "cuda"
 
 
@@ -834,14 +842,15 @@ def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
 
 
 def profile_run(fn, label: str, top: int = 6, ranges: dict | None = None,
-                spans: tuple = ()) -> tuple[float, float]:
+                spans: tuple = ()) -> tuple[float, float, dict]:
     """Device time of one run by kernel (torch.profiler), against its wall
     time: how much of the run keeps the card busy.  ``ranges`` maps a label
     to a (module, function name): each such function runs inside a
     ``record_function`` range of that label for the run, and the device
-    time of the kernels it launched is reported.  Returns the device's busy
-    seconds and the wall seconds.  ``spans`` names ``record_function``
-    ranges the program opens itself, reported the same way."""
+    time of the kernels it launched is reported.  ``spans`` names
+    ``record_function`` ranges the program opens itself, reported the same
+    way.  Returns the device's busy seconds, the wall seconds and each
+    hand-written kernel's device ms by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -893,9 +902,11 @@ def profile_run(fn, label: str, top: int = 6, ranges: dict | None = None,
     for us, count, key in rows[:top]:
         log(f"      {us / 1e3:10.2f} ms  x{count:<5d} {key[:72]}")
     # each hand-written kernel by name, in the top rows or not
+    kernel_ms = {}
     for name in KERNELS:
         hit = [(us, count) for us, count, key in rows if re.search(rf"\b{name}\b", key)]
-        log(f"      {sum(h[0] for h in hit) / 1e3:10.2f} ms  x{sum(h[1] for h in hit):<5d} "
+        kernel_ms[name] = sum(h[0] for h in hit) / 1e3
+        log(f"      {kernel_ms[name]:10.2f} ms  x{sum(h[1] for h in hit):<5d} "
             f"{name} (all instantiations)")
     gemm = [(us, count) for us, count, key in rows
             if re.search(r"gemm|nvjet|xmma|cutlass|cublas", key, re.IGNORECASE)]
@@ -905,7 +916,7 @@ def profile_run(fn, label: str, top: int = 6, ranges: dict | None = None,
     for e in averages:
         if (e.key in saved or e.key in spans) and e.device_type == DeviceType.CPU:
             log(f"      {e.device_time_total / 1e3:10.2f} ms  x{e.count:<5d} in {e.key}")
-    return busy, wall
+    return busy, wall, kernel_ms
 
 
 def phase_card_vs_cpu() -> None:
@@ -2745,19 +2756,29 @@ TRAIN_ATTN = (
 WHISPER_CKPT_NAMES = (82, "dde96b25f9d39527bd1ba68580095b8f2765cd582cdd19573aff3389f2049f98")
 
 
+# the bf16 attention backward's ms before its tensor-core redesign (the
+# CUDA-core design's three launches), by TRAIN_ATTN label: quoted from
+# PERF.md section 6, row 3b (NVIDIA H100 80GB HBM3, 700.00 W), for the log
+# only; no run of this script measures them
+BWD_MS_BEFORE = {"qwen3-32b": 14.5499, "whisper-tiny encoder": 4.1909}
+
+
 def _rel_fro(got, want) -> float:
     got, want = got.float(), want.float()
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
 def phase_flash_bwd() -> dict:
-    """The attention backward kernels against ``flash_attention_bwd_plain``
-    on the same inputs (the kernel's own o and lse): the training shapes of
-    qwen3-32b and whisper-tiny, then GQA, head dims 16-128, a ragged tail,
-    q_offset > 0 and fp32; the forward's new lse output against the plain
-    forward's; ``ssd_intra_chunk`` refusing a CUDA input that needs a
-    gradient.  Then both training shapes timed beside their bound and
-    SDPA's backward (``enable_gqa``)."""
+    """The attention backward kernels, after a check of the wgmma fragment
+    layouts the bf16 kernels rest on (``wgmma_bwd_layout_probe``), against
+    ``flash_attention_bwd_plain`` on the same inputs (the kernel's own o and
+    lse): the training shapes of qwen3-32b and whisper-tiny, then GQA, head
+    dims 16-128, a ragged tail, q_offset > 0 and fp32; the forward's lse
+    output against the plain forward's; two calls at qwen3-32b's shape bit
+    for bit; ``ssd_intra_chunk`` refusing a CUDA input that needs a
+    gradient.  Then the four training shapes timed beside their bound, the
+    split's seven-product floor, SDPA's backward (``enable_gqa``) and, where
+    PERF.md has it, the CUDA-core design's time."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -2766,6 +2787,30 @@ def phase_flash_bwd() -> dict:
     gen = torch.Generator(device=DEV).manual_seed(3)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
     f32, b16 = torch.float32, torch.bfloat16
+
+    # the fragment layouts: S^T = k q^T, dP^T = v do^T, then bf16(S^T) do
+    # and bf16(dP^T) q from the dK/dV kernel's own loads, descriptors and
+    # products, each register written where the kernels take it to lie (the
+    # dQ kernel's products take the same layouts); the products are exact,
+    # so only the order of the fp32 sums differs (1e-5 of the largest value;
+    # a misplaced register is off by the values themselves)
+    for hd_ in (16, 24, 64, 80, 128):
+        q, do = (rnd(64, hd_).to(b16) for _ in range(2))
+        k, v = (rnd(128, hd_).to(b16) for _ in range(2))
+        s_k, dp_k, dv_k, dk_k = fa.wgmma_bwd_layout_probe(q, do, k, v)
+        want = [k.float() @ q.float().T, v.float() @ do.float().T,
+                s_k.bfloat16().float() @ do.float(), dp_k.bfloat16().float() @ q.float()]
+        torch.cuda.synchronize()
+        got = [s_k, dp_k, dv_k[:, :hd_], dk_k[:, :hd_]]
+        err = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        tol = [1e-5 * float(w.abs().max()) for w in want]
+        check(all(e <= t for e, t in zip(err, tol)) and not bool(dv_k[:, hd_:].any())
+              and not bool(dk_k[:, hd_:].any()),
+              f"the backward's wgmma fragment layout is wrong at hd={hd_}: S^T, dP^T, dV, dK "
+              f"errors {err} (tol {tol})")
+        log(f"[30] backward wgmma fragment layout hd={hd_}: S^T err {err[0]:.3g}, dP^T "
+            f"{err[1]:.3g}, bf16(S^T) dO {err[2]:.3g}, bf16(dP^T) Q {err[3]:.3g} (tol "
+            f"{max(tol):.3g})")
     # relative Frobenius error of dq, dk and dv: both sides sum in fp32 in
     # other orders and round to the storage type once
     tol = {b16: 1e-2, f32: 1e-5}
@@ -2782,12 +2827,16 @@ def phase_flash_bwd() -> dict:
               (2, 4, 2, 128, 128, 64, 0, f32, True),
               (1, 64, 8, 256, 256, 128, 0, f32, True),
               (1, 6, 6, 64, 1500, 64, 0, f32, False)]
+    # and whisper-tiny's encoder with its logits' spread under the
+    # reference's init (std about 100: q and k drawn 10x wider), where P is
+    # nearly one-hot and dS a small difference
+    cases = [(*case, 1.0) for case in cases] + [(2, 6, 6, 1500, 1500, 64, 0, b16, False, 10.0)]
     errs, lse_errs = [], []
     launches = fa.flash_attention_bwd.launches
-    for b_, h_, kv_, sq, skv, hd_, off, dtype, causal in cases:
+    for b_, h_, kv_, sq, skv, hd_, off, dtype, causal, wide in cases:
         mk = lambda *shape: rnd(*shape).to(dtype).transpose(1, 2)  # the model's layout
-        q, k, v = mk(b_, sq, h_, hd_), mk(b_, skv, kv_, hd_), mk(b_, skv, kv_, hd_)
-        do = mk(b_, sq, h_, hd_)
+        q, k = (wide * mk(b_, s_, n_, hd_) for s_, n_ in ((sq, h_), (skv, kv_)))
+        v, do = mk(b_, skv, kv_, hd_), mk(b_, sq, h_, hd_)
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, q_offset=off, return_lse=True)
         _, lse_p = fa.flash_attention_plain_lse(q, k, v, causal=causal, q_offset=off)
         got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, q_offset=off)
@@ -2796,8 +2845,10 @@ def phase_flash_bwd() -> dict:
         e_lse = float((lse - lse_p).abs().max())
         e = [_rel_fro(g, w) for g, w in zip(got, want)]
         label = (f"b={b_} h={h_} kv={kv_} sq={sq} skv={skv} hd={hd_} q_offset={off} "
-                 f"{str(dtype)[6:]} causal={causal}")
-        check(e_lse <= tol_lse[dtype], f"the forward's lse != the plain forward's: {e_lse} at {label}")
+                 f"{str(dtype)[6:]} causal={causal}" + (f" q, k x{wide:g}" if wide != 1 else ""))
+        # the lse's error grows with the logits' magnitude (fp32 sums)
+        check(e_lse <= tol_lse[dtype] * wide,
+              f"the forward's lse != the plain forward's: {e_lse} at {label}")
         check(max(e) <= tol[dtype] and all(np.isfinite(e)),
               f"attention backward kernel != plain: dq, dk, dv relative errors {e} > "
               f"{tol[dtype]} at {label}")
@@ -2805,9 +2856,23 @@ def phase_flash_bwd() -> dict:
         lse_errs.append(e_lse)
         log(f"[30] attention backward {label}: relative Frobenius error dq {e[0]:.3g}, dk "
             f"{e[1]:.3g}, dv {e[2]:.3g} (tol {tol[dtype]}); lse max abs err {e_lse:.3g} "
-            f"(tol {tol_lse[dtype]})")
+            f"(tol {tol_lse[dtype] * wide:g})")
         del q, k, v, do, o, lse, got, want
-    check(fa.flash_attention_bwd.launches == launches + len(cases),
+    # no atomics and a fixed order of summation: two calls on the same
+    # inputs give the same bits (a restart from a checkpoint repeats a run)
+    _, b_, h_, kv_, sq, skv, hd_, causal = TRAIN_ATTN[0]
+    mk = lambda *shape: rnd(*shape).to(b16).transpose(1, 2)
+    q, k, v = mk(b_, sq, h_, hd_), mk(b_, skv, kv_, hd_), mk(b_, skv, kv_, hd_)
+    do = mk(b_, sq, h_, hd_)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    second = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, c)) for a, c in zip(first, second)]
+    check(all(same), f"two backward calls at qwen3-32b's shape differ: dq, dk, dv equal {same}")
+    log("[30] attention backward at qwen3-32b's shape, two calls: dq, dk, dv bit for bit equal")
+    del q, k, v, do, o, lse, first, second
+    check(fa.flash_attention_bwd.launches == launches + len(cases) + 2,
           "the backward wrapper did not count its launches")
     fa.flash_attention_bwd.launches = launches  # comparisons do not count
 
@@ -2827,22 +2892,29 @@ def phase_flash_bwd() -> dict:
     log(f"[30] ssd_intra_chunk on a CUDA input that needs a gradient: NotImplementedError, "
         f"no launch ({refused[:60]}...)")
 
-    rows = [flash_bwd_timed(rnd, *shape) for _, *shape in TRAIN_ATTN[:2]]
+    rows = [flash_bwd_timed(rnd, *shape, before=BWD_MS_BEFORE.get(label))
+            for label, *shape in TRAIN_ATTN]
     return {"name": "flash_attention_bwd_kernel", "route": "cuda", "source": FLASH_SOURCE,
             "replaces": "none: the JAX package differentiates its jnp attention "
                         "(src/repro/models/attention.py:42); backward of "
                         "src/repro/kernels/flash_attention.py:38",
-            "max_abs_err": max(errs), "max_lse_err": max(lse_errs), **rows[0]}
+            "max_abs_err": max(errs), "max_lse_err": max(lse_errs), **rows[0],
+            "whisper_encoder_ms": rows[1]["ms"], "whisper_decoder_ms": rows[2]["ms"],
+            "whisper_cross_ms": rows[3]["ms"]}
 
 
 def flash_bwd_timed(rnd, b: int, h: int, kv: int, sq: int, skv: int, hd: int,
-                    causal: bool) -> dict:
+                    causal: bool, before: float | None) -> dict:
     """The backward kernels (the three launches of one call), their plain
     version and SDPA's backward (``torch.autograd.grad`` through
     ``scaled_dot_product_attention`` with ``enable_gqa``) at one training
     shape, bf16, on the main path's layout; the bound from 2.5x the
     forward's FLOPs (5 products against 2) and the bytes of q, k, v, o, do
-    and lse read and dq, dk, dv written."""
+    and lse read and dq, dk, dv written; the split's own floor, its 7
+    products (S and dP in both passes) at the bf16 peak, logged; ``before``,
+    the CUDA-core design's ms at this shape as PERF.md quotes it (or None),
+    logged beside the kernels' time.  Returns what this call measured and
+    the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -2866,12 +2938,17 @@ def flash_bwd_timed(rnd, b: int, h: int, kv: int, sq: int, skv: int, hd: int,
     nbytes = 2 * b * hd * (3 * sq * h + 2 * skv * kv) + 4 * b * h * sq  # q, o, do, k, v, lse
     nbytes += 2 * b * hd * (sq * h + 2 * skv * kv)  # dq, dk, dv written
     bms, by, terms = bound(nbytes, [(flops, BF16_FLOP_PER_S)])
+    floor7 = 3.5 * fwd_flops / BF16_FLOP_PER_S * 1e3
     s = f"s={sq}" if sq == skv else f"sq={sq} skv={skv}"
     log(f"    training shape b={b} h={h} kv={kv} {s} hd={hd} causal={causal}: backward kernels "
-        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the 5-product count), plain "
-        f"{plain_ms:.3f} ms, SDPA backward {lib_ms:.4f} ms, bound {bms:.4f} ms ({terms}; "
-        f"{flops / 1e9:.2f} GFLOP at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16, "
-        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of the 5-product count, "
+        f"{3.5 * fwd_flops / ms / 1e9:.1f} of the split's 7), plain {plain_ms:.3f} ms, SDPA "
+        f"backward {lib_ms:.4f} ms ({ms / lib_ms:.2f}x the kernels' time is SDPA's), bound "
+        f"{bms:.4f} ms ({terms}; {flops / 1e9:.2f} GFLOP at {BF16_FLOP_PER_S / 1e12:.0f} "
+        f"TFLOP/s bf16, {HBM_BYTES_PER_S / 1e12:.2f} TB/s), the split's 7-product floor "
+        f"{floor7:.4f} ms"
+        + ("" if before is None else f"; the CUDA-core design, {before} ms here in PERF.md "
+           f"(not measured in this run), took {before / ms:.1f}x as long"))
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
 
 
@@ -2982,9 +3059,14 @@ def phase_train_qwen3(steps: int = 8, seq: int = 1024, batch: int = 8) -> dict:
     check(peak <= reckoned + 8 * 2**30,
           f"peak device memory {peak / 2**30:.2f} GiB exceeds the reckoning "
           f"{reckoned / 2**30:.2f} GiB by more than 8 GiB")
-    profile_run(lambda: tr.train(1, log_every=0), "one train step", top=12,
-                ranges={"cross_entropy_loss (forward)": (transformer, "cross_entropy_loss")},
-                spans=(SPAN_GRADS, SPAN_OPTIMIZER))
+    _, wall, kms = profile_run(lambda: tr.train(1, log_every=0), "one train step", top=12,
+                               ranges={"cross_entropy_loss (forward)":
+                                       (transformer, "cross_entropy_loss")},
+                               spans=(SPAN_GRADS, SPAN_OPTIMIZER))
+    bwd_ms = sum(kms[name] for name in BWD_BF16_KERNELS)
+    log(f"    the attention backward in the profiled step: {bwd_ms:.2f} ms of {wall * 1e3:.1f} ms "
+        f"({100 * bwd_ms / (wall * 1e3):.1f}%; "
+        + ", ".join(f"{name} {kms[name]:.2f} ms" for name in BWD_BF16_KERNELS) + ")")
     return launches
 
 
@@ -2996,7 +3078,8 @@ def phase_train_whisper(steps: int = 8, seq: int = 448, batch: int = 8, every: i
     final weights against the uninterrupted run's, bit for bit (the path's
     kernels and ops are deterministic; a difference is reported by tensor
     and held to a stated tolerance); the checkpoint's leaf names against
-    the JAX package's."""
+    the JAX package's; then the backward kernels' first two steps against
+    the plain backward's (``_whisper_bwd_plain_gap``)."""
     import hashlib
     import json as _json
     import shutil
@@ -3072,9 +3155,72 @@ def phase_train_whisper(steps: int = 8, seq: int = 448, batch: int = 8, every: i
                 f"{worst:.3g}): {differ[:6]}")
             check(dl <= 1e-4 and worst <= 1e-3,
                   "the restarted run is beyond the tolerance (losses 1e-4, weights 1e-3)")
+        del a, b, c, pa, pc
+        _whisper_bwd_plain_gap(cfg, steps, seq, batch)
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def _recording(tr) -> list:
+    """``tr`` with its optimizer's gradients copied to the host in fp32
+    before each update; returns the list the copies go to, a list a step."""
+    import torch
+
+    from repro_torch.optim import Optimizer
+
+    seen = []
+    inner = tr.opt
+
+    def update(grads, state, leaves, step):
+        # copies: the clip scales the gradients in place
+        seen.append([g.detach().to("cpu", torch.float32, copy=True)
+                     for gs in grads for g in gs])
+        return inner.update(grads, state, leaves, step)
+
+    tr.opt = Optimizer(init=inner.init, update=update, name=inner.name)
+    tr.__post_init__()  # the step function takes the recording optimizer
+    return seen
+
+
+def _whisper_bwd_plain_gap(cfg, steps: int, seq: int, batch: int) -> None:
+    """Two bf16 whisper-tiny steps of phase 32's run, once through the
+    backward kernels and once with ``flash_attention_bwd_plain`` (fp32 P
+    and dS) on the card in their place, from the same weights and batches:
+    the losses, the grad norms and the worst gradient tensor of step 0
+    (the same forward, so only the attention backward differs), and the
+    loss of step 1 after one AdamW update.  Logged, not checked."""
+    from repro_torch.convert import reference_leaves
+    from repro_torch.kernels import flash_attention as fa
+
+    runs = []
+    for plain in (False, True):
+        free_device()
+        tr = _trainer(cfg, steps, seq, batch)
+        tr.init(0)
+        seen = _recording(tr)
+        kernels = fa.flash_attention_bwd
+        if plain:
+            fa.flash_attention_bwd = fa.flash_attention_bwd_plain
+        try:
+            hist = tr.train(2, log_every=0)
+        finally:
+            fa.flash_attention_bwd = kernels
+        names = [n for leaf in reference_leaves(cfg, tr.state["params"])
+                 for n in [leaf.path] * len(leaf.tensors)]
+        runs.append((hist, seen[0]))
+        del tr, seen
+    (hk, gk), (hp, gp) = runs
+    worst, where = max((_rel_fro(a, b), n) for n, a, b in zip(names, gk, gp))
+    check(all(np.isfinite(h[key]) for h in hk + hp for key in ("loss", "grad_norm")),
+          "a whisper loss or grad norm is not finite with the kernels or the plain backward")
+    log(f"    bf16 whisper-tiny with the backward kernels / with flash_attention_bwd_plain on "
+        f"the card (logged, not checked): step 0 loss {hk[0]['loss']:.6f} / "
+        f"{hp[0]['loss']:.6f}, grad norm {hk[0]['grad_norm']:.6f} / {hp[0]['grad_norm']:.6f} "
+        f"(relative {abs(hk[0]['grad_norm'] - hp[0]['grad_norm']) / hp[0]['grad_norm']:.3g}); "
+        f"gradients: worst relative Frobenius {worst:.3g} ({where}); step 1 loss "
+        f"{hk[1]['loss']:.6f} / {hp[1]['loss']:.6f} (relative "
+        f"{abs(hk[1]['loss'] - hp[1]['loss']) / hp[1]['loss']:.3g})")
 
 
 def _card_vs_cpu_step(cfg, b: int, s: int, lr: float, rescale_qk: bool = False) -> dict:
@@ -3091,22 +3237,6 @@ def _card_vs_cpu_step(cfg, b: int, s: int, lr: float, rescale_qk: bool = False) 
     import torch
 
     from repro_torch.convert import reference_leaves
-    from repro_torch.optim import Optimizer
-
-    def recording(tr):
-        """``tr`` with its optimizer's gradients copied before each update."""
-        seen = []
-        inner = tr.opt
-
-        def update(grads, state, leaves, step):
-            # copies: the clip scales the gradients in place
-            seen.append([g.detach().to("cpu", torch.float32, copy=True)
-                         for gs in grads for g in gs])
-            return inner.update(grads, state, leaves, step)
-
-        tr.opt = Optimizer(init=inner.init, update=update, name=inner.name)
-        tr.__post_init__()  # the step function takes the recording optimizer
-        return seen
 
     card = _trainer(cfg, 8, s, b)
     card.init(0)
@@ -3119,7 +3249,7 @@ def _card_vs_cpu_step(cfg, b: int, s: int, lr: float, rescale_qk: bool = False) 
     p_cpu = copy.deepcopy(card.state["params"]).to("cpu")  # the card's weights
     cpu.state = {"params": p_cpu, "step": 0,
                  "opt_state": cpu.opt.init(reference_leaves(cfg, p_cpu))}
-    g_card, g_cpu = recording(card), recording(cpu)
+    g_card, g_cpu = _recording(card), _recording(cpu)
     _reset_train_counts()
     t0 = time.perf_counter()
     hc = card.train(1, log_every=0)[0]
@@ -3267,7 +3397,7 @@ def main() -> int:
     # card), its collectives (phase 23: one apsp for the round counts) and
     # its table and figure modules (phase 24: Table 1's stats)
     step4 = []
-    busy, wall = profile_run(lambda: step4.extend(
+    busy, wall, _ = profile_run(lambda: step4.extend(
         [phase_layout_remesh(g8), phase_collectives(), phase_paper_scripts()]), "phases 22-24")
     invariants += step4
     log(f"    phases 22-24: the card idle {100 * (1 - busy / wall):.2f}% of {wall:.1f} s "

@@ -119,6 +119,8 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_bwd_launch.restype = i
         lib.flash_attention_probe_launch.argtypes = [p, p, p, p, p, i, p]
         lib.flash_attention_probe_launch.restype = i
+        lib.flash_attention_bwd_probe_launch.argtypes = [p] * 8 + [i, p]
+        lib.flash_attention_bwd_probe_launch.restype = i
         lib.ssd_intra_chunk_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.ssd_intra_chunk_launch.restype = i
         lib.ssd_probe_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, p]

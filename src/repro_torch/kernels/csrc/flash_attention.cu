@@ -66,26 +66,55 @@
 // forward's lse, with P = exp(scale q k^T - lse) (masked entries 0) and
 // D = rowsum(do o): dV = P^T do and dK = scale dS^T q summed over the query
 // heads of a KV group, dS = P (do v^T - D), dQ = scale dS k.  FA2's split,
-// three launches, no atomics (the result is the same from run to run):
-//   flash_attention_bwd_dot_kernel: D, one warp a query row;
+// three launches, no atomics: every output element is written by one block
+// and summed in a fixed order, so the result is the same from run to run.
+// Bound on this card: about 2.5x the forward's products (5 matrix products
+// against 2), 172 GFLOP at qwen3-32b's training shape (b 4, h 64, kv 8,
+// s 1024, hd 128, causal), 0.174 ms at 989 TFLOP/s bf16; the split
+// recomputes S and dP in both passes (7 products, 241 GFLOP, 0.243 ms).
+//   flash_attention_bwd_dot_kernel: D, one warp a query row (both dtypes;
+//     for bf16 it also writes lse log2(e), both in rows padded to 64 with
+//     zeros, so that a 64-row tile of them is one 256-byte bulk copy).
+// bf16, on the tensor cores, in the forward's structure (one resident block
+// of three warpgroups per SM walking a list of work tiles, the heaviest
+// causal tile first; warpgroup 2 the producer, starting every TMA copy and
+// giving its registers away; warpgroups 0 and 1 consumers of 64 rows each):
+//   flash_attention_bwd_dkdv_bf16_kernel: a work tile is 128 keys of one
+//     (batch, KV head), K and V loaded once (two buffers, so the next tile's
+//     load overlaps this one's end); the producer streams Q, dO, lse log2(e)
+//     and D of every 64-row query tile of every query head of the group that
+//     the causal mask lets see the keys through a two-stage ring.  Each
+//     consumer computes S^T = K_wg Q^T and dP^T = V_wg dO^T (wgmma, both
+//     operands K-major in shared memory), P^T = 2^(S^T scale log2(e) - lse
+//     log2(e)) and dS^T = P^T (dP^T - D) in the accumulator fragment (lse and
+//     D by the fragment's column; the mask only on tiles that straddle the
+//     diagonal or a ragged tail), packs both to bf16 A fragments in
+//     registers, and runs dV += P^T dO and dK += dS^T Q from them (Q and dO
+//     read MN-major from the same tiles).  dK scale and dV are written once.
+//   flash_attention_bwd_dq_bf16_kernel: a work tile is 128 query rows of one
+//     (batch, head), Q and dO in two buffers; K and V tiles of 64 keys
+//     stream through a two-stage ring.  Each consumer computes S = Q_wg K^T
+//     and dP = dO_wg V^T, P and dS in the fragment (lse and D by row), then
+//     dQ += dS K (K MN-major); dQ scale is written once.
+// fp32 keeps the first design, on the CUDA cores (any hd up to 128): 256
+// threads, each 4 x 4 of the S and dP tiles and 4 x hd/16 of the
+// accumulators, the operands staged in shared memory as fp32 with odd row
+// strides:
 //   flash_attention_bwd_dkdv_kernel: one block per (64-key tile, KV head,
 //     batch), K and V resident, walking the 64-row query tiles of every
 //     query head of its group that the causal mask lets see the tile;
 //   flash_attention_bwd_dq_kernel: one block per (64-query tile, head,
 //     batch), walking the key tiles the tile can see.
-// Bound on this card: about 2.5x the forward's products (5 matrix products
-// against 2), 172 GFLOP at qwen3-32b's training shape (b 4, h 64, kv 8,
-// s 1024, hd 128, causal), 0.174 ms at 989 TFLOP/s bf16.  This first design
-// runs on the CUDA cores in fp32 (bf16 or fp32 storage, either dtype, any
-// hd up to 128): 256 threads, each 4 x 4 of the S and dP tiles and 4 x hd/16
-// of the accumulators, the operands staged in shared memory as fp32 with
-// odd row strides; it recomputes S and dP in both passes (7 products).
-// Its time is far from the bound; the tensor-core redesign is queued.
 //
 // flash_attention_probe_kernel checks, on the card, the fragment layouts
 // the bf16 kernel rests on: one warpgroup computes S = Q K^T and then
 // bf16(S) V with the same loads, descriptors and products, and writes each
 // accumulator register where the kernel assumes its row and column to be.
+// flash_attention_bwd_probe_kernel does the same for the bf16 backward's
+// four operand uses: two warpgroups compute S^T = K_wg Q^T and dP^T =
+// V_wg dO^T (K and V as A from a 128-row tile, Q and dO as n64 K-major B),
+// then bf16(S^T) dO and bf16(dP^T) Q (dO and Q as MN-major B under a
+// register A); the dQ kernel's products take the same layouts.
 
 #include "hopper.cuh"
 
@@ -752,7 +781,7 @@ int launch_probe(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap
 }
 
 // ---------------------------------------------------------------------------
-// Backward: CUDA cores, fp32 arithmetic, bf16 or fp32 storage
+// Backward: D for both dtypes; the fp32 kernels on the CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int kBwdThreads = 256;
@@ -768,9 +797,6 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // rows x HDP columns of a (seq, hd) slice into shared memory as fp32, row
 // stride RS; rows past n and columns past hd are zero
@@ -786,16 +812,23 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, long long st
   }
 }
 
-// D_i = do_i . o_i for every (batch, head, query row), one warp a row
+// D_i = do_i . o_i for every (batch, head, query row), one warp a row, in
+// rows of sq_pad (row i of (batch, head) bh at bh sq_pad + i); with lse2,
+// also lse log2(e) there, and both 0 in the rows from sq to sq_pad
 template <typename T>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_attention_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                                float* __restrict__ D, BwdStrides st, int h, int sq, int hd,
-                               long long n_rows) {
+                               long long n_rows, int sq_pad, const float* __restrict__ lse,
+                               float* __restrict__ lse2) {
   const long long row = (long long)blockIdx.x * (kBwdThreads / 32) + threadIdx.x / 32;
   if (row >= n_rows) return;
   const int lane = threadIdx.x % 32;
-  const long long s = row % sq, bh = row / sq;
+  const long long s = row % sq_pad, bh = row / sq_pad;
+  if (s >= sq) {  // padding (bf16 only)
+    if (lane == 0) D[row] = lse2[row] = 0.f;
+    return;
+  }
   const long long hh = bh % h, bb = bh / h;
   const T* orow = o + bb * st.o[0] + hh * st.o[1] + s * st.o[2];
   const T* drow = dout + bb * st.dout[0] + hh * st.dout[1] + s * st.dout[2];
@@ -803,7 +836,10 @@ flash_attention_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ do
   for (int d = lane; d < hd; d += 32) acc = fmaf(to_f32(orow[d]), to_f32(drow[d]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) D[row] = acc;
+  if (lane == 0) {
+    D[row] = acc;
+    if (lse2 != nullptr) lse2[row] = lse[bh * sq + s] * kLog2e;
+  }
 }
 
 // S = Q K^T and dP = dO V^T of one (query tile, key tile) pair: each
@@ -1052,7 +1088,7 @@ int launch_bwd(const T* q, const T* k, const T* v, const T* o, const T* dout, co
   const long long dot_blocks = (n_rows + rows_per_block - 1) / rows_per_block;
   if (dot_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   flash_attention_bwd_dot_kernel<T><<<(unsigned)dot_blocks, kBwdThreads, 0, stream>>>(
-      o, dout, D, st, h, sq, hd, n_rows);
+      o, dout, D, st, h, sq, hd, n_rows, sq, nullptr, nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int smem_kv = bwd_smem_bytes<DPT>(true);
@@ -1097,6 +1133,601 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const void* o, con
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_FAB
+}
+
+// ---------------------------------------------------------------------------
+// Backward, bf16: wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kBN = 128;     // keys of a dK/dV work tile, query rows of a dQ work tile
+constexpr int kBT = 64;      // query rows of a tile streamed to dK/dV, keys of one streamed to dQ
+constexpr int kBStages = 2;  // depth of the streamed ring
+constexpr int kSlabN = kBN * kRowBytes;  // one slab of a 128-row tile, 4 KB
+constexpr int kSlabT = kBT * kRowBytes;  // one slab of a 64-row tile, 2 KB
+constexpr int kRowPad = 64;  // D and lse log2(e) rows are padded to a multiple of this
+
+// dK/dV: byte offsets from a 1024-aligned base; NS = slabs of 16 head-dim columns
+template <int NS>
+struct SmemKV {
+  static constexpr int kv = 0;                                // + buffer * 2 NS kSlabN: K, then V
+  static constexpr int q = 2 * 2 * NS * kSlabN;               // + stage * 2 NS kSlabT: Q, then dO
+  static constexpr int rows = q + kBStages * 2 * NS * kSlabT; // + stage * 512: lse log2(e), then D
+  static constexpr int bar = rows + kBStages * 2 * kBT * 4;
+  static constexpr int bytes = bar + 8 * (4 + 2 * kBStages) + 1024;  // + alignment slack
+};
+
+// dQ
+template <int NS>
+struct SmemQ {
+  static constexpr int q = 0;                          // + buffer * 2 NS kSlabN: Q, then dO
+  static constexpr int kv = 2 * 2 * NS * kSlabN;       // + stage * 2 NS kSlabT: K, then V
+  static constexpr int bar = kv + kBStages * 2 * NS * kSlabT;
+  static constexpr int bytes = bar + 8 * (4 + 2 * kBStages) + 1024;
+};
+
+// C (64 x 64, fp32) = A B^T, A and B 64 rows x 16 NS columns in shared
+// memory, both K-major (A's slabs a_slab bytes apart, B's kSlabT): one
+// k-step per slab, committed as one group
+template <int NS>
+__device__ __forceinline__ void mma_abt(float (&c)[32], uint32_t a, int a_slab, uint32_t b) {
+  uint64_t da[NS], db[NS];
+#pragma unroll
+  for (int kk = 0; kk < NS; ++kk) {
+    da[kk] = sw32_desc(a + kk * a_slab, 16, 256);
+    db[kk] = sw32_desc(b + kk * kSlabT, 16, 256);
+  }
+  fence_regs(da);
+  fence_regs(db);
+  fence_regs(c);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NS; ++kk) wgmma_ss_n64(c, da[kk], db[kk], kk > 0);
+  wgmma_commit();
+  fence_regs(c);
+}
+
+// C (64 x 16 NS, fp32) += A B, A 64 x 64 as bf16 A fragments in registers
+// (4 k-steps of 16), B 64 rows (the k dimension) x 16 NS columns in shared
+// memory, MN-major (slabs kSlabT apart), all NS slabs in one product of
+// width 16 NS per k-step, committed as one group
+template <int NS>
+__device__ __forceinline__ void mma_rs(float (&c)[8 * NS], uint32_t (&a)[16], uint32_t b) {
+  uint64_t db[kBT / 16];
+#pragma unroll
+  for (int kk = 0; kk < kBT / 16; ++kk) db[kk] = sw32_desc(b + kk * 16 * kRowBytes, kSlabT, 256);
+  fence_regs(db);
+  fence_regs(a);
+  fence_regs(c);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBT / 16; ++kk) wgmma_rs(c, &a[4 * kk], db[kk], 1);
+  wgmma_commit();
+  fence_regs(c);
+}
+
+// P^T and dS^T of a 64-key x 64-query tile in the fragment (row = key,
+// column = query), in place of S^T and dP^T: lse2 and d are the tile's 64
+// rows of lse log2(e) and D in shared memory.  kMasked: column c (counted
+// from this lane's first) of fragment row half r is masked, P = 0, when c <
+// lo[r] or c >= hi.  Then P^T and dS^T are packed as bf16 A fragments.
+template <bool kMasked>
+__device__ __forceinline__ void p_ds_cols(float (&s)[32], float (&dp)[32], uint32_t (&pf)[16],
+                                          uint32_t (&dsf)[16], const float* lse2,
+                                          const float* d, int lane, const int (&lo)[2], int hi,
+                                          float scale_log2) {
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * jj + 2 * (lane % 4));
+    const float2 dd = *reinterpret_cast<const float2*>(d + 8 * jj + 2 * (lane % 4));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // register 4 jj + e: row half e / 2, column 8 jj + e % 2
+      const int i = 4 * jj + e;
+      float p = ex2(fmaf(s[i], scale_log2, -((e & 1) ? l.y : l.x)));
+      if (kMasked) {
+        const int c = 8 * jj + (e & 1);
+        if (c < lo[e >> 1] || c >= hi) p = 0.f;
+      }
+      s[i] = p;
+      dp[i] = p * (dp[i] - ((e & 1) ? dd.y : dd.x));
+    }
+  }
+  pack_bf16(s, pf);
+  pack_bf16(dp, dsf);
+}
+
+// dS of a 64-query x 64-key tile in the fragment (row = query, column =
+// key), in place of dP, from S: lse2 and d of this thread's two rows.
+// kMasked: column c (from this lane's first) of row half r is masked when
+// c >= lim[r].  Then dS is packed as bf16 A fragments.
+template <bool kMasked>
+__device__ __forceinline__ void p_ds_rows(const float (&s)[32], float (&dp)[32],
+                                          uint32_t (&dsf)[16], const float (&lse2)[2],
+                                          const float (&d)[2], const int (&lim)[2],
+                                          float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    float p = ex2(fmaf(s[i], scale_log2, -lse2[r]));
+    if (kMasked && 8 * (i >> 2) + (i & 1) >= lim[r]) p = 0.f;
+    dp[i] = p * (dp[i] - d[r]);
+  }
+  pack_bf16(dp, dsf);
+}
+
+// this warpgroup's 128 threads meet (named barrier 1 + wg): before a
+// release with no wgmma to hold its warps in step, so that no warp lags
+// past a stage that is reloaded (see flash_attention_kernel's skip loop)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// the accumulator (64 rows x 16 NS, fp32) times `mul` as bf16 rows of a
+// (b, heads, seq, hd) tensor at ob (this head's base, row stride os), rows
+// from row0 (this thread's first; and row0 + 8) below n, columns below hd
+template <int NS>
+__device__ __forceinline__ void store_rows(const float (&acc)[8 * NS], __nv_bfloat16* ob,
+                                           long long os, int row0, int n, int hd, float mul,
+                                           int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row0 + 8 * r;
+    if (rr >= n) continue;
+    __nv_bfloat16* orow = ob + (long long)rr * os;
+#pragma unroll
+    for (int c = 0; c < 2 * NS; ++c) {
+      const int col = 8 * c + 2 * (lane % 4);
+      if (col < hd)
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(acc[4 * c + 2 * r] * mul, acc[4 * c + 2 * r + 1] * mul);
+    }
+  }
+}
+
+template <int NS>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                                     const __grid_constant__ CUtensorMap tdo,
+                                     const __grid_constant__ CUtensorMap tk,
+                                     const __grid_constant__ CUtensorMap tv,
+                                     const float* __restrict__ lse2, const float* __restrict__ D,
+                                     __nv_bfloat16* __restrict__ dk,
+                                     __nv_bfloat16* __restrict__ dv, BwdStrides ost, int h,
+                                     int kvh, int n_bkv, int rep, int sq,
+                                     int sq_pad, int skv, int hd, int causal, int q_offset,
+                                     float scale, float scale_log2) {
+  using L = SmemKV<NS>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint8_t* sbase = smem_raw + (base - smem_addr(smem_raw));
+  // mbarriers: K/V full and empty (2 buffers), then the ring's full and empty
+  const uint32_t kv_full = base + L::bar, kv_empty = kv_full + 16;
+  const uint32_t full = kv_empty + 16, empty = full + 8 * kBStages;
+  const int nkt = (skv + kBN - 1) / kBN;
+  const int n_work = n_bkv * nkt;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(kv_full + 8 * i, 1);   // the producer's arrive, then the bytes
+      mbar_init(kv_empty + 8 * i, 2);  // one arrive per consumer warpgroup
+    }
+    for (int st = 0; st < kBStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Work tile n of this block as (batch * kvh + KV head, first key, first
+  // query row, query tiles per head), or false past the end.  The list is
+  // key-tile-major, the first key tiles (under the causal mask the ones the
+  // most query rows see) first; blocks take its rounds of gridDim.x forwards
+  // and backwards in turn, as the forward does.
+  auto work = [&](int n, int& g, int& k0, int& q_first, int& n_qt) {
+    const int pos = n * (int)gridDim.x +
+                    ((n & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
+    if (pos >= n_work) return false;
+    g = pos % n_bkv;
+    k0 = (pos / n_bkv) * kBN;
+    q_first = 0;
+    if (causal && k0 > q_offset) q_first = (k0 - q_offset) / kBT * kBT;  // rows before see no key
+    n_qt = q_first < sq ? (sq - q_first + kBT - 1) / kBT : 0;
+    return true;
+  };
+
+  if (wg == 2) {
+    // producer: K and V of each work tile, then every (head, query tile) of
+    // it in the order the consumers take them, running ahead by the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      int g, k0, q_first, n_qt;
+      int it = 0;  // query tiles before this work tile
+      for (int n = 0; work(n, g, k0, q_first, n_qt); ++n) {
+        const int batch = g / kvh, kh = g % kvh;
+        const int kb = n & 1;
+        mbar_wait(kv_empty + 8 * kb, ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(kv_full + 8 * kb, 2 * NS * kSlabN);
+        const uint32_t kv_s = base + L::kv + kb * 2 * NS * kSlabN;
+        for (int s = 0; s < NS; ++s) {
+          tma_load(kv_s + s * kSlabN, &tk, kv_full + 8 * kb, kSlab * s, k0, kh, batch);
+          tma_load(kv_s + (NS + s) * kSlabN, &tv, kv_full + 8 * kb, kSlab * s, k0, kh, batch);
+        }
+        for (int hi = 0; hi < rep; ++hi) {
+          const int head = kh * rep + hi;
+          const long long row0 = ((long long)batch * h + head) * sq_pad;
+          for (int j = 0; j < n_qt; ++j, ++it) {
+            const int q0 = q_first + j * kBT;
+            const int st = it % kBStages;
+            mbar_wait(empty + 8 * st, ((it / kBStages) & 1) ^ 1);
+            const uint32_t fb = full + 8 * st;
+            mbar_expect_tx(fb, 2 * NS * kSlabT + 2 * kBT * 4);
+            const uint32_t q_s = base + L::q + st * 2 * NS * kSlabT;
+            for (int s = 0; s < NS; ++s) {
+              tma_load(q_s + s * kSlabT, &tq, fb, kSlab * s, q0, head, batch);
+              tma_load(q_s + (NS + s) * kSlabT, &tdo, fb, kSlab * s, q0, head, batch);
+            }
+            const uint32_t r_s = base + L::rows + st * 2 * kBT * 4;
+            bulk_load(r_s, lse2 + row0 + q0, kBT * 4, fb);
+            bulk_load(r_s + kBT * 4, D + row0 + q0, kBT * 4, fb);
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: 64 keys of each work tile per warpgroup
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int t128 = threadIdx.x % 128;
+    const int lane = threadIdx.x % 32;
+    const bool signal = t128 == 0;  // arrives for this warpgroup
+    int g, k0, q_first, n_qt;
+    int it = 0;
+    for (int n = 0; work(n, g, k0, q_first, n_qt); ++n) {
+      const int batch = g / kvh, kh = g % kvh;
+      const int kb = n & 1;
+      const int kw = k0 + 64 * wg;                 // this warpgroup's first key
+      const int key = kw + frag_row(0, t128);      // this thread's keys: key, key + 8
+      const uint32_t k_s = base + L::kv + kb * 2 * NS * kSlabN + 64 * wg * kRowBytes;
+      const uint32_t v_s = k_s + NS * kSlabN;
+      float adk[8 * NS], adv[8 * NS];
+#pragma unroll
+      for (int i = 0; i < 8 * NS; ++i) adk[i] = adv[i] = 0.f;
+      mbar_wait(kv_full + 8 * kb, (n >> 1) & 1);
+      for (int hi = 0; hi < rep; ++hi) {
+        for (int j = 0; j < n_qt; ++j, ++it) {
+          const int q0 = q_first + j * kBT;
+          const int st = it % kBStages;
+          mbar_wait(full + 8 * st, (it / kBStages) & 1);
+          // no key of this warpgroup is seen by a query of the tile
+          if (kw >= skv || (causal && (long long)q_offset + q0 + kBT - 1 < kw)) {
+            wg_sync(wg);
+            if (signal) mbar_arrive(empty + 8 * st);
+            continue;
+          }
+          const uint32_t q_s = base + L::q + st * 2 * NS * kSlabT;
+          const uint32_t do_s = q_s + NS * kSlabT;
+          const float* r_s = reinterpret_cast<const float*>(sbase + L::rows + st * 2 * kBT * 4);
+          float s[32] = {}, dp[32] = {};  // not read: the first k-step has scale-d 0
+          mma_abt<NS>(s, k_s, kSlabN, q_s);
+          mma_abt<NS>(dp, v_s, kSlabN, do_s);
+          wgmma_wait<0>();
+          fence_regs(s);
+          fence_regs(dp);
+          uint32_t pf[16], dsf[16];
+          // the mask where the tile straddles the diagonal or a ragged tail:
+          // query c0 + c of key kr is masked when c0 + c >= sq, when kr >=
+          // skv, or (causal) when q_offset + c0 + c < kr
+          if (kw + 64 > skv || q0 + kBT > sq || (causal && (long long)q_offset + q0 < kw + 63)) {
+            const int c0 = q0 + 2 * (lane % 4);
+            int lo[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int kr = key + 8 * r;
+              const long long first = causal ? (long long)kr - q_offset - c0 : -64;
+              lo[r] = kr >= skv ? 64 : (int)max(-64ll, first);
+            }
+            p_ds_cols<true>(s, dp, pf, dsf, r_s, r_s + kBT, lane, lo, sq - c0, scale_log2);
+          } else {
+            const int lo[2] = {0, 0};
+            p_ds_cols<false>(s, dp, pf, dsf, r_s, r_s + kBT, lane, lo, 64, scale_log2);
+          }
+          mma_rs<NS>(adv, pf, do_s);
+          mma_rs<NS>(adk, dsf, q_s);
+          wgmma_wait<0>();
+          fence_regs(adv);
+          fence_regs(adk);
+          fence_regs(pf);
+          fence_regs(dsf);
+          if (signal) mbar_arrive(empty + 8 * st);
+        }
+      }
+      wg_sync(wg);  // every warp is done with K and V
+      if (signal) mbar_arrive(kv_empty + 8 * kb);
+      store_rows<NS>(adk, dk + batch * ost.dk[0] + kh * ost.dk[1], ost.dk[2], key, skv, hd, scale,
+                     lane);
+      store_rows<NS>(adv, dv + batch * ost.dv[0] + kh * ost.dv[1], ost.dv[2], key, skv, hd, 1.f,
+                     lane);
+    }
+  }
+}
+
+template <int NS>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tdo,
+                                   const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   const float* __restrict__ lse2, const float* __restrict__ D,
+                                   __nv_bfloat16* __restrict__ dq, BwdStrides ost, int heads,
+                                   int n_bh, int rep, int sq, int sq_pad, int skv, int hd,
+                                   int causal, int q_offset, float scale, float scale_log2) {
+  using L = SmemQ<NS>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  // mbarriers: Q/dO full and empty (2 buffers), then the K/V ring's
+  const uint32_t q_full = base + L::bar, q_empty = q_full + 16;
+  const uint32_t kv_full = q_empty + 16, kv_empty = kv_full + 8 * kBStages;
+  const int nq = (sq + kBN - 1) / kBN;
+  const int n_work = n_bh * nq;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(q_full + 8 * i, 1);
+      mbar_init(q_empty + 8 * i, 2);
+    }
+    for (int st = 0; st < kBStages; ++st) {
+      mbar_init(kv_full + 8 * st, 1);
+      mbar_init(kv_empty + 8 * st, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // work tile n as (batch * heads + head, first query row, key tiles), as
+  // the forward's: each head's heaviest causal tile (the last) first
+  auto work = [&](int n, int& bh, int& q0, int& n_tiles) {
+    const int pos = n * (int)gridDim.x +
+                    ((n & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
+    if (pos >= n_work) return false;
+    bh = pos / nq;
+    q0 = (nq - 1 - pos % nq) * kBN;
+    int kv_end = skv;
+    if (causal) {
+      const long long last = (long long)q_offset + min(q0 + kBN, sq);
+      kv_end = (int)(last < skv ? last : skv);
+    }
+    n_tiles = (kv_end + kBT - 1) / kBT;
+    return true;
+  };
+  auto stage = [](int t) { return t % kBStages; };
+  auto phase = [](int t) { return (uint32_t)(t / kBStages) & 1u; };
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      int bh, q0, n_tiles;
+      int it = 0;  // key tiles before this work tile
+      for (int n = 0; work(n, bh, q0, n_tiles); ++n) {
+        const int head = bh % heads, batch = bh / heads, kh = head / rep;
+        const int qb = n & 1;
+        mbar_wait(q_empty + 8 * qb, ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(q_full + 8 * qb, 2 * NS * kSlabN);
+        const uint32_t q_s = base + L::q + qb * 2 * NS * kSlabN;
+        for (int s = 0; s < NS; ++s) {
+          tma_load(q_s + s * kSlabN, &tq, q_full + 8 * qb, kSlab * s, q0, head, batch);
+          tma_load(q_s + (NS + s) * kSlabN, &tdo, q_full + 8 * qb, kSlab * s, q0, head, batch);
+        }
+        for (int j = 0; j < n_tiles; ++j) {
+          const int t = it + j;
+          mbar_wait(kv_empty + 8 * stage(t), phase(t) ^ 1);
+          mbar_expect_tx(kv_full + 8 * stage(t), 2 * NS * kSlabT);
+          const uint32_t k_s = base + L::kv + stage(t) * 2 * NS * kSlabT;
+          for (int s = 0; s < NS; ++s) {
+            tma_load(k_s + s * kSlabT, &tk, kv_full + 8 * stage(t), kSlab * s, j * kBT, kh, batch);
+            tma_load(k_s + (NS + s) * kSlabT, &tv, kv_full + 8 * stage(t), kSlab * s, j * kBT, kh,
+                     batch);
+          }
+        }
+        it += n_tiles;
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int t128 = threadIdx.x % 128;
+    const int lane = threadIdx.x % 32;
+    const bool signal = t128 == 0;
+    int bh, q0, n_tiles;
+    int it = 0;
+    for (int n = 0; work(n, bh, q0, n_tiles); ++n) {
+      const int head = bh % heads, batch = bh / heads;
+      const int qb = n & 1;
+      const int wg_row = q0 + 64 * wg;
+      const int row = wg_row + frag_row(0, t128);  // and row + 8
+      const bool live = wg_row < sq;
+      const long long pos_lo = (long long)q_offset + wg_row;
+      const long long pos_hi = (long long)q_offset + min(wg_row + 63, sq - 1);
+      // key tiles wholly past this warpgroup's last row are only released
+      int n_eff = live ? n_tiles : 0;
+      if (causal && live) n_eff = min(n_tiles, (int)(pos_hi / kBT) + 1);
+      // rows past sq: Q and dO are zero-filled and lse2 and D read as 0,
+      // so dS = 1 (0 - 0) = 0 there and nothing needs masking
+      float l2[2], dd[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rr = row + 8 * r;
+        const long long at = (long long)bh * sq_pad + rr;
+        l2[r] = rr < sq ? lse2[at] : 0.f;
+        dd[r] = rr < sq ? D[at] : 0.f;
+      }
+      const uint32_t q_s = base + L::q + qb * 2 * NS * kSlabN + 64 * wg * kRowBytes;
+      const uint32_t do_s = q_s + NS * kSlabN;
+      float adq[8 * NS];
+#pragma unroll
+      for (int i = 0; i < 8 * NS; ++i) adq[i] = 0.f;
+      mbar_wait(q_full + 8 * qb, (n >> 1) & 1);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int t = it + j;
+        mbar_wait(kv_full + 8 * stage(t), phase(t));
+        if (j >= n_eff) {
+          wg_sync(wg);
+          if (signal) mbar_arrive(kv_empty + 8 * stage(t));
+          continue;
+        }
+        const int k0 = j * kBT;
+        const uint32_t k_s = base + L::kv + stage(t) * 2 * NS * kSlabT;
+        const uint32_t v_s = k_s + NS * kSlabT;
+        float s[32] = {}, dp[32] = {};  // not read: the first k-step has scale-d 0
+        mma_abt<NS>(s, q_s, kSlabN, k_s);
+        mma_abt<NS>(dp, do_s, kSlabN, v_s);
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        uint32_t dsf[16];
+        if (k0 + kBT > skv || (causal && k0 + kBT - 1 > pos_lo)) {
+          int lim[2];  // first masked column of each row, less this lane's
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const long long end =
+                causal ? min((long long)skv, (long long)q_offset + row + 8 * r + 1) : skv;
+            lim[r] = (int)(end - k0) - 2 * (lane % 4);
+          }
+          p_ds_rows<true>(s, dp, dsf, l2, dd, lim, scale_log2);
+        } else {
+          const int lim[2] = {0, 0};
+          p_ds_rows<false>(s, dp, dsf, l2, dd, lim, scale_log2);
+        }
+        mma_rs<NS>(adq, dsf, k_s);
+        wgmma_wait<0>();
+        fence_regs(adq);
+        fence_regs(dsf);
+        if (signal) mbar_arrive(kv_empty + 8 * stage(t));
+      }
+      it += n_tiles;
+      wg_sync(wg);  // every warp is done with Q and dO
+      if (signal) mbar_arrive(q_empty + 8 * qb);
+      if (live)
+        store_rows<NS>(adq, dq + batch * ost.dq[0] + head * ost.dq[1], ost.dq[2], row, sq, hd,
+                       scale, lane);
+    }
+  }
+}
+
+// two warpgroups, the dK/dV kernel's loads, descriptors and products on
+// k, v (128, hd) and q, do (64, hd): s_out, dp_out (128, 64) = k q^T,
+// v do^T; dv_out, dk_out (128, 16 NS) = bf16(s) do, bf16(dp) q; each
+// register written where the kernels take it to lie
+template <int NS>
+__global__ void __launch_bounds__(256)
+flash_attention_bwd_probe_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tdo,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv, float* __restrict__ s_out,
+                                 float* __restrict__ dp_out, float* __restrict__ dv_out,
+                                 float* __restrict__ dk_out) {
+  using L = SmemKV<NS>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar = base + L::bar;
+  const int t = threadIdx.x, wg = t / 128, t128 = t % 128;
+  if (t == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (t == 0) {
+    mbar_expect_tx(bar, 2 * NS * (kSlabN + kSlabT));
+    for (int s = 0; s < NS; ++s) {
+      tma_load(base + L::kv + s * kSlabN, &tk, bar, kSlab * s, 0, 0, 0);
+      tma_load(base + L::kv + (NS + s) * kSlabN, &tv, bar, kSlab * s, 0, 0, 0);
+      tma_load(base + L::q + s * kSlabT, &tq, bar, kSlab * s, 0, 0, 0);
+      tma_load(base + L::q + (NS + s) * kSlabT, &tdo, bar, kSlab * s, 0, 0, 0);
+    }
+  }
+  mbar_wait(bar, 0);
+  const uint32_t k_s = base + L::kv + 64 * wg * kRowBytes, v_s = k_s + NS * kSlabN;
+  const uint32_t q_s = base + L::q, do_s = q_s + NS * kSlabT;
+  float s[32] = {}, dp[32] = {};
+  mma_abt<NS>(s, k_s, kSlabN, q_s);
+  mma_abt<NS>(dp, v_s, kSlabN, do_s);
+  wgmma_wait<0>();
+  fence_regs(s);
+  fence_regs(dp);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int at = (64 * wg + frag_row(i, t128)) * 64 + frag_col(i, t128);
+    s_out[at] = s[i];
+    dp_out[at] = dp[i];
+  }
+  uint32_t pf[16], dsf[16];
+  pack_bf16(s, pf);
+  pack_bf16(dp, dsf);
+  float adv[8 * NS], adk[8 * NS];
+#pragma unroll
+  for (int i = 0; i < 8 * NS; ++i) adv[i] = adk[i] = 0.f;
+  mma_rs<NS>(adv, pf, do_s);
+  mma_rs<NS>(adk, dsf, q_s);
+  wgmma_wait<0>();
+  fence_regs(adv);
+  fence_regs(adk);
+  fence_regs(pf);
+  fence_regs(dsf);
+#pragma unroll
+  for (int i = 0; i < 8 * NS; ++i) {
+    const int at = (64 * wg + frag_row(i, t128)) * 16 * NS + frag_col(i, t128);
+    dv_out[at] = adv[i];
+    dk_out[at] = adk[i];
+  }
+}
+
+// the tensor maps of the bf16 backward: q, do, k, v with boxes of 64 rows
+// (t) and of 128 rows (n)
+struct BwdMaps {
+  CUtensorMap q_t, do_t, k_n, v_n, q_n, do_n, k_t, v_t;
+};
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int NS>
+int launch_bwd_bf16(const BwdMaps& m, const float* lse2, const float* D, void* dq, void* dk,
+                    void* dv, const BwdStrides& st, int b, int h, int kvh, int sq, int sq_pad,
+                    int skv, int hd, int causal, int q_offset, float scale, cudaStream_t stream) {
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int rep = h / kvh;
+  const long long kv_work = (long long)b * kvh * ((skv + kBN - 1) / kBN);
+  const long long q_work = (long long)b * h * ((sq + kBN - 1) / kBN);
+  if (kv_work > 0x7fffffffLL || q_work > 0x7fffffffLL) return cudaErrorInvalidValue;
+  err = allow_smem(flash_attention_bwd_dkdv_bf16_kernel<NS>, SmemKV<NS>::bytes);
+  if (err != cudaSuccess) return err;
+  flash_attention_bwd_dkdv_bf16_kernel<NS>
+      <<<(int)(kv_work < sms ? kv_work : sms), kThreads, SmemKV<NS>::bytes, stream>>>(
+          m.q_t, m.do_t, m.k_n, m.v_n, lse2, D, static_cast<__nv_bfloat16*>(dk),
+          static_cast<__nv_bfloat16*>(dv), st, h, kvh, b * kvh, rep, sq, sq_pad, skv, hd,
+          causal, q_offset, scale, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = allow_smem(flash_attention_bwd_dq_bf16_kernel<NS>, SmemQ<NS>::bytes);
+  if (err != cudaSuccess) return err;
+  flash_attention_bwd_dq_bf16_kernel<NS>
+      <<<(int)(q_work < sms ? q_work : sms), kThreads, SmemQ<NS>::bytes, stream>>>(
+          m.q_n, m.do_n, m.k_t, m.v_t, lse2, D, static_cast<__nv_bfloat16*>(dq), st, h, b * h,
+          rep, sq, sq_pad, skv, hd, causal, q_offset, scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int NS>
+int launch_bwd_probe(const BwdMaps& m, float* s_out, float* dp_out, float* dv_out,
+                     float* dk_out, cudaStream_t stream) {
+  cudaError_t err = allow_smem(flash_attention_bwd_probe_kernel<NS>, SmemKV<NS>::bytes);
+  if (err != cudaSuccess) return err;
+  flash_attention_bwd_probe_kernel<NS><<<1, 256, SmemKV<NS>::bytes, stream>>>(
+      m.q_t, m.do_t, m.k_n, m.v_n, s_out, dp_out, dv_out, dk_out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1176,9 +1807,12 @@ int flash_attention_probe_launch(const void* q, const void* k, const void* v, fl
 // lse (contiguous (b, h, sq) fp32), and do, write dq (q's shape) and dk, dv
 // (k's shape), all of q's dtype (0 float32, 1 bfloat16).  strides: 24 int64
 // (batch, head, seq) strides in elements of q, k, v, o, do, dq, dk, dv.  D
-// is a (b, h, sq) fp32 scratch tensor.  Three launches on the stream: D =
-// rowsum(do o), then dK/dV, then dQ; no atomics, so the result is the same
-// from run to run.
+// is fp32 scratch: b h sq floats for float32; for bfloat16 2 b h sq_pad,
+// sq_pad = sq rounded up to a multiple of 64 (D, then lse log2(e)).
+// bfloat16 needs hd % 8 == 0 and 16-byte aligned tensors and strides (the
+// TMA's terms), which the wrapper checks before it calls.  Three launches
+// on the stream: D = rowsum(do o), then dK/dV, then dQ; no atomics, so the
+// result is the same from run to run.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
                                const void* dout, const float* lse, float* D, void* dq, void* dk,
                                void* dv, const long long* strides, int b, int h, int kvh, int sq,
@@ -1202,10 +1836,64 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
   if (dtype == 0)
     return dispatch_bwd<float>(q, k, v, o, dout, lse, D, dq, dk, dv, st, b, h, kvh, sq, skv, hd,
                                causal, q_offset, scale, s);
-  if (dtype == 1)
-    return dispatch_bwd<__nv_bfloat16>(q, k, v, o, dout, lse, D, dq, dk, dv, st, b, h, kvh, sq,
-                                       skv, hd, causal, q_offset, scale, s);
-  return cudaErrorInvalidValue;
+  if (dtype != 1 || hd % 8 != 0) return cudaErrorInvalidValue;
+  BwdMaps m;
+  int err = encode_map(&m.q_t, q, hd, sq, h, b, strides, kBT);
+  if (err == cudaSuccess) err = encode_map(&m.q_n, q, hd, sq, h, b, strides, kBN);
+  if (err == cudaSuccess) err = encode_map(&m.k_t, k, hd, skv, kvh, b, strides + 3, kBT);
+  if (err == cudaSuccess) err = encode_map(&m.k_n, k, hd, skv, kvh, b, strides + 3, kBN);
+  if (err == cudaSuccess) err = encode_map(&m.v_t, v, hd, skv, kvh, b, strides + 6, kBT);
+  if (err == cudaSuccess) err = encode_map(&m.v_n, v, hd, skv, kvh, b, strides + 6, kBN);
+  if (err == cudaSuccess) err = encode_map(&m.do_t, dout, hd, sq, h, b, strides + 12, kBT);
+  if (err == cudaSuccess) err = encode_map(&m.do_n, dout, hd, sq, h, b, strides + 12, kBN);
+  if (err != cudaSuccess) return err;
+  const int sq_pad = (sq + kRowPad - 1) / kRowPad * kRowPad;
+  const long long n_rows = (long long)b * h * sq_pad;
+  float* lse2 = D + n_rows;
+  const long long dot_blocks = (n_rows + kBwdThreads / 32 - 1) / (kBwdThreads / 32);
+  if (dot_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_attention_bwd_dot_kernel<__nv_bfloat16><<<(unsigned)dot_blocks, kBwdThreads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), D, st, h, sq,
+      hd, n_rows, sq_pad, lse, lse2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+#define REPRO_FAB16(NS)                                                                     \
+  case NS:                                                                                  \
+    return launch_bwd_bf16<NS>(m, lse2, D, dq, dk, dv, st, b, h, kvh, sq, sq_pad, skv, hd,  \
+                               causal, q_offset, scale, s)
+  switch ((hd + kSlab - 1) / kSlab) {
+    REPRO_FAB16(1); REPRO_FAB16(2); REPRO_FAB16(3); REPRO_FAB16(4);
+    REPRO_FAB16(5); REPRO_FAB16(6); REPRO_FAB16(7); REPRO_FAB16(8);
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_FAB16
+}
+
+// The bf16 backward's fragment-layout check: q, do (64, hd), k, v (128, hd)
+// contiguous bf16 -> s_out, dp_out (128, 64) = k q^T, v do^T and dv_out,
+// dk_out (128, 16 ceil(hd / 16)) = bf16(s) do, bf16(dp) q, all fp32, each
+// register written where the backward kernels assume it lies.
+int flash_attention_bwd_probe_launch(const void* q, const void* dout, const void* k,
+                                     const void* v, float* s_out, float* dp_out, float* dv_out,
+                                     float* dk_out, int hd, void* stream) {
+  if (hd <= 0 || hd > 128 || hd % 8 != 0) return cudaErrorInvalidValue;
+  const long long s64[3] = {64LL * hd, 64LL * hd, hd};
+  const long long s128[3] = {128LL * hd, 128LL * hd, hd};
+  BwdMaps m;
+  int err = encode_map(&m.q_t, q, hd, 64, 1, 1, s64, kBT);
+  if (err == cudaSuccess) err = encode_map(&m.do_t, dout, hd, 64, 1, 1, s64, kBT);
+  if (err == cudaSuccess) err = encode_map(&m.k_n, k, hd, 128, 1, 1, s128, kBN);
+  if (err == cudaSuccess) err = encode_map(&m.v_n, v, hd, 128, 1, 1, s128, kBN);
+  if (err != cudaSuccess) return err;
+  auto s = static_cast<cudaStream_t>(stream);
+#define REPRO_BPROBE(NS) \
+  case NS: return launch_bwd_probe<NS>(m, s_out, dp_out, dv_out, dk_out, s)
+  switch ((hd + kSlab - 1) / kSlab) {
+    REPRO_BPROBE(1); REPRO_BPROBE(2); REPRO_BPROBE(3); REPRO_BPROBE(4);
+    REPRO_BPROBE(5); REPRO_BPROBE(6); REPRO_BPROBE(7); REPRO_BPROBE(8);
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_BPROBE
 }
 
 }  // extern "C"

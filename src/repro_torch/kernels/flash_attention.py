@@ -24,10 +24,15 @@ The gradient: ``flash_attention`` is the differentiable entry point, a
 ``torch.autograd.Function`` when an input needs a gradient.  Its forward
 keeps the lse; its backward is ``flash_attention_bwd``, which on a CUDA
 tensor launches the hand-written backward kernels of the same source
-(``flash_attention_bwd_launch``: D = rowsum(do o), then dK/dV, then dQ)
-and counts one in ``flash_attention_bwd.launches`` per call, and on a CPU
-tensor runs ``flash_attention_bwd_plain``.  The JAX package has no
-counterpart: its trainer differentiates its jnp attention.
+(``flash_attention_bwd_launch``: D = rowsum(do o), then dK/dV, then dQ; no
+atomics) and counts one in ``flash_attention_bwd.launches`` per call, and
+on a CPU tensor runs ``flash_attention_bwd_plain``.  bfloat16 runs
+``flash_attention_bwd_dkdv_bf16_kernel`` and ``_dq_bf16_kernel`` (tensor
+cores through ``wgmma``, tiles streamed by TMA; its domain is the bf16
+forward's, ``check_bf16_bwd_domain``, and a tensor outside it raises),
+float32 ``flash_attention_bwd_dkdv_kernel`` and ``_dq_kernel`` (CUDA
+cores).  The JAX package has no counterpart: its trainer differentiates
+its jnp attention.
 """
 from __future__ import annotations
 
@@ -37,12 +42,14 @@ import torch
 
 from . import _build
 
-__all__ = ["NEG_INF", "MAX_HEAD_DIM", "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_plain", "flash_attention_fwd", "flash_attention_plain",
-           "flash_attention_plain_lse", "wgmma_layout_probe"]
+__all__ = ["NEG_INF", "MAX_HEAD_DIM", "check_bf16_bwd_domain", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_plain", "flash_attention_fwd",
+           "flash_attention_plain", "flash_attention_plain_lse", "wgmma_bwd_layout_probe",
+           "wgmma_layout_probe"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128  # bf16: 8 slabs of 16 columns; fp32: hd / 16 columns per thread
+ROW_PAD = 64  # the bf16 backward keeps D and lse log2(e) in rows padded to this
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -118,22 +125,52 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.sum(dim=2).to(k.dtype), dv.sum(dim=2).to(k.dtype)
 
 
+def _tma_problem(name: str, t: torch.Tensor) -> str | None:
+    """Why the TMA cannot read or write the bf16 tensor ``t``, or None: it
+    needs a 16-byte aligned base and (batch, head, seq) strides of positive
+    multiples of 16 bytes (a dimension of size 1 is never stepped)."""
+    if t.data_ptr() % 16:
+        return f"{name} must start on a 16-byte boundary for the TMA (data_ptr {t.data_ptr():#x})"
+    for i in range(3):
+        st = t.stride(i)
+        if t.shape[i] > 1 and (st <= 0 or (2 * st) % 16):
+            return (f"{name} has stride {st} elements in dimension {i}: the TMA needs a positive "
+                    f"multiple of 16 bytes")
+    return None
+
+
 def _tma_strides(name: str, t: torch.Tensor) -> list[int]:
     """(batch, head, seq) strides of a bf16 tensor in elements, as the TMA
-    takes them: 16-byte aligned base and strides; a dimension of size 1 is
-    never stepped, so its stride is set to a legal value."""
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte boundary for the TMA "
-                         f"(data_ptr {t.data_ptr():#x})")
-    hd = t.shape[-1]
-    out = []
-    for i in range(3):
-        st = t.stride(i) if t.shape[i] > 1 else hd
-        if st <= 0 or (2 * st) % 16:
-            raise ValueError(f"{name} has stride {st} elements in dimension {i}: the TMA needs "
-                             f"a positive multiple of 16 bytes")
-        out.append(st)
-    return out
+    takes them (``_tma_problem`` raises as ``ValueError``); a dimension of
+    size 1 is never stepped, so its stride is set to a legal value."""
+    problem = _tma_problem(name, t)
+    if problem:
+        raise ValueError(problem)
+    return [t.stride(i) if t.shape[i] > 1 else t.shape[-1] for i in range(3)]
+
+
+def check_bf16_bwd_domain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                          do: torch.Tensor, dq: torch.Tensor, dk: torch.Tensor,
+                          dv: torch.Tensor) -> list[int]:
+    """Raise ``ValueError`` unless the bf16 backward kernels take these
+    (b, heads, seq, hd) tensors, the inputs and the outputs: hd a multiple
+    of 8 up to 128 (slabs of 16 columns, one TMA box and one ``wgmma``
+    k-step each; a partial slab is zero-filled), a contiguous last
+    dimension, and the TMA's terms for each (``_tma_problem``).  The bf16
+    forward has the same domain, so no training input falls outside it.
+    Returns the 24 (batch, head, seq) strides in elements that the launcher
+    takes.  Reads only shapes, strides and addresses: runs on any device."""
+    hd = q.shape[-1]
+    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"the bf16 attention backward takes hd a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM} (wgmma widths, 16-byte TMA strides), got hd={hd}")
+    strides = []
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do), ("dq", dq), ("dk", dk),
+                    ("dv", dv)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous in its last dimension")
+        strides += _tma_strides(name, t)
+    return strides
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -207,8 +244,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     hd) with any strides over the first three dimensions) -> (dq, dk, dv),
     dq in q's dtype and (b, sq, h, hd) memory order, dk and dv in k's dtype
     and (b, skv, kv, hd) order, each seen as (b, heads, seq, hd).  Launches
-    the backward kernels (fp32 arithmetic; float32 or bfloat16 storage, hd
-    up to 128) on a CUDA tensor; runs ``flash_attention_bwd_plain`` on a CPU
+    the backward kernels on a CUDA tensor (bfloat16: the tensor-core
+    kernels, within ``check_bf16_bwd_domain``; float32: the CUDA-core
+    kernels, hd up to 128); runs ``flash_attention_bwd_plain`` on a CPU
     tensor."""
     b, h, sq, hd = q.shape
     kvh, skv = k.shape[1], k.shape[2]
@@ -240,9 +278,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=dev).transpose(1, 2)
     dk = torch.empty((b, skv, kvh, hd), dtype=q.dtype, device=dev).transpose(1, 2)
     dv = torch.empty((b, skv, kvh, hd), dtype=q.dtype, device=dev).transpose(1, 2)
-    d_rows = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-    strides = (ctypes.c_longlong * 24)(*(t.stride(i) for t in (q, k, v, o, do, dq, dk, dv)
-                                         for i in range(3)))
+    if q.dtype == torch.bfloat16:
+        st = check_bf16_bwd_domain(q, k, v, o, do, dq, dk, dv)
+        # D and lse log2(e) in rows padded to ROW_PAD, one bulk copy a tile
+        d_rows = torch.empty((2, b * h * (-(-sq // ROW_PAD) * ROW_PAD)), dtype=torch.float32,
+                             device=dev)
+    else:
+        st = [t.stride(i) for t in (q, k, v, o, do, dq, dk, dv) for i in range(3)]
+        d_rows = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 24)(*st)
     err = _build.library().flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), d_rows.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -270,9 +314,13 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            do = do.contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.to(q.dtype), *ctx.args)
+        do = do.to(q.dtype)
+        # the kernels read do with a unit last stride, and the bf16 ones by
+        # TMA (a broadcast gradient's 0 strides are copied out first)
+        if do.stride(-1) != 1 or (do.is_cuda and do.dtype == torch.bfloat16
+                                  and _tma_problem("do", do)):
+            do = do.clone(memory_format=torch.contiguous_format)
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, *ctx.args)
         return dq, dk, dv, None, None, None
 
 
@@ -309,3 +357,31 @@ def wgmma_layout_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(err, "flash_attention_probe_kernel")
     return s, o
+
+
+def wgmma_bwd_layout_probe(q: torch.Tensor, do: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 backward kernels' fragment layouts, checked on the card: q
+    and do (64, hd), k and v (128, hd) contiguous bf16 CUDA tensors -> (s,
+    dp, dv, dk) fp32, where s = k q^T and dp = v do^T (128, 64), dv =
+    bf16(s) do and dk = bf16(dp) q (128, 16 ceil(hd / 16)) are computed by
+    two warpgroups of 64 keys with the dK/dV kernel's loads, descriptors and
+    products (K and V as A operands from a 128-row tile, Q and dO as n64
+    K-major B operands, then as MN-major B operands under a register A; the
+    dQ kernel's products take the same layouts), each accumulator register
+    written at the row and column the kernels assume it holds.  Not counted
+    in ``flash_attention_bwd.launches``."""
+    hd = q.shape[-1]
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"wgmma_bwd_layout_probe runs on a CUDA tensor, got {dev}")
+    for name, t, rows in (("q", q, 64), ("do", do, 64), ("k", k, 128), ("v", v, 128)):
+        _build.check_tensor(name, t, (rows, hd), (torch.bfloat16,), dev)
+    hdp = -(-hd // 16) * 16
+    s, dp = (torch.empty((128, 64), dtype=torch.float32, device=dev) for _ in range(2))
+    dv, dk = (torch.empty((128, hdp), dtype=torch.float32, device=dev) for _ in range(2))
+    err = _build.library().flash_attention_bwd_probe_launch(
+        q.data_ptr(), do.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(), dp.data_ptr(),
+        dv.data_ptr(), dk.data_ptr(), hd, torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on_error(err, "flash_attention_bwd_probe_kernel")
+    return s, dp, dv, dk
