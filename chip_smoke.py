@@ -180,12 +180,20 @@ Phases, in order; any failure raises and exits non-zero:
     bf16, 1e-5 in fp32) at the training shapes (qwen3-32b: b=4, h=64, kv=8,
     s=1024, hd=128, causal; whisper-tiny at b=8: the encoder non-causal at
     s=1500, the decoder at s=448, cross-attention of 448 queries against
-    1500 keys), GQA, head dims 16-128, ragged tails, q_offset > 0 and fp32;
-    the forward's lse output against the plain forward's; two calls at
-    qwen3's shape bit for bit; ``ssd_intra_chunk`` refusing a CUDA input
-    that needs a gradient; qwen3's and whisper's encoder shapes timed beside
-    their bound, the split's 7-product floor, SDPA's backward and the
-    CUDA-core design's time;
+    1500 keys; zamba2-2.7b: b=8, h=kv=32, s=1024, hd=80, causal), GQA,
+    head dims 16-128, ragged tails, q_offset > 0 and fp32; the forward's
+    lse output against the plain forward's; two calls at qwen3's shape bit
+    for bit; the training shapes timed beside their bound, the split's
+    7-product floor, SDPA's backward and the CUDA-core design's time; then
+    the SSD backward (``ssd_intra_chunk_bwd``: ``ssd_intra_chunk_bwd_kernel``
+    and its finish, CUDA cores) against ``ssd_intra_chunk_bwd_plain`` (dx,
+    dB, dC within 1e-2 of their largest magnitude in bf16, 1e-5 in fp32;
+    ddt and dA 1e-5) at mamba2-2.7b's and zamba2-2.7b's training shapes
+    (b*h=640, s=1024, p=64, n=128 and 64, chunk 256, dt = softplus of a
+    normal) in bf16 and fp32 and at nine small and edge shapes (p, n 1-128,
+    chunks 16-512, dt = 0 padding rows); two calls at mamba2's shape bit
+    for bit; p = 136 refused before any launch; both training shapes timed
+    beside their bound and the plain version;
 31. the main training path: ``Trainer`` on qwen3-32b at full width, depth 2,
     bf16, remat "full", 2 microbatches, AdamW (lr 1e-3, 8 steps, warmup 1),
     ``SyntheticLM`` at seq 1024 and global batch 8, 8 steps: per-step loss,
@@ -203,12 +211,28 @@ Phases, in order; any failure raises and exits non-zero:
     and batch: qwen3-32b at full width, depth 1 (b=2, s=128) and
     whisper-tiny at full depth (its wq and wk at fan-in d_model; the
     reference's init logged): loss and grad norm (1e-4), every gradient
-    tensor (1e-3) and every updated weight (2.2 lr) within tolerance.
+    tensor (1e-3) and every updated weight (2.2 lr) within tolerance;
+34. mamba2-2.7b training at full width and depth (64 layers, bf16, the
+    config's AdamW, per-layer checkpointing and one microbatch;
+    ``SyntheticLM`` at seq 1024, global batch 8, 6 steps): per-step loss,
+    grad norm, lr and time, the median step, tokens/s, peak memory against
+    the reckoning, 128 SSD forward and 64 backward launches a step, a
+    profile of one more step with the SSD backward's share; then step 0
+    again with ``ssd_intra_chunk_bwd_plain`` on the card in the kernel's
+    place: equal losses, grad norms within ``STEP0_GAP_TOL`` (1e-3; 3e-3
+    for zamba2, whose step moves 7e-4 to 1.2e-3 with fp32-rounding-sized
+    noise on the SSD backward's outputs);
+35. the same for zamba2-2.7b at full width and depth (54 Mamba2 layers,
+    the shared attention block at 9 stages, per-stage checkpointing): 108
+    SSD forward and 54 backward, 18 attention forward and 9 backward
+    launches a step;
+36. phase 33 for mamba2-2.7b at depth 2 and zamba2-2.7b at depth 6 (one
+    stage), b=1, s=256 (one chunk of 256), with the SSD launches checked.
 
 It prints one ``{"kernels": [...]}`` JSON line (per kernel: launches on the
 main paths (the BFS kernels: phases 5, 7, 19, 20, 21, 22, 23 and 24; the
-model kernels: phases 13, 15, 17, 25-28 and the training phases 31-33,
-where the attention backward kernel launches),
+model kernels: phases 13, 15, 17, 25-28 and the training phases 31-36,
+where the attention and SSD backward kernels launch),
 the largest difference from the plain version, kernel, plain and library
 times from CUDA events around a run of calls, and the least time the card
 could take), then the
@@ -239,10 +263,12 @@ FP32_FLOP_PER_S = 67e12
 SWEEP_SOURCE = "src/repro_torch/kernels/csrc/bfs_sweep.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SSD_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
 KERNELS = ("bfs_sweep_kernel", "minplus_patch_kernel", "flash_attention_kernel",
            "ssd_intra_chunk_kernel", "flash_attention_bwd_dot_kernel",
            "flash_attention_bwd_dkdv_bf16_kernel", "flash_attention_bwd_dq_bf16_kernel",
-           "flash_attention_bwd_dkdv_kernel", "flash_attention_bwd_dq_kernel")
+           "flash_attention_bwd_dkdv_kernel", "flash_attention_bwd_dq_kernel",
+           "ssd_intra_chunk_bwd_kernel", "ssd_intra_chunk_bwd_finish_kernel")
 # the attention backward's kernels on the bf16 training paths
 BWD_BF16_KERNELS = ("flash_attention_bwd_dot_kernel", "flash_attention_bwd_dkdv_bf16_kernel",
                     "flash_attention_bwd_dq_bf16_kernel")
@@ -2741,13 +2767,20 @@ def phase_model_card_vs_cpu(arch: str, phase: int, depth: int, prompt_len: int =
 # Training (phases 30-33)
 # ---------------------------------------------------------------------------
 
-# the attention backward's shapes on the training paths (phases 31-32):
-# (label, b, h, kv, sq, skv, hd, causal), bf16, b a microbatch
+# the attention backward's shapes on the training paths (phases 31, 32 and
+# 35): (label, b, h, kv, sq, skv, hd, causal), bf16, b a microbatch
 TRAIN_ATTN = (
     ("qwen3-32b", 4, 64, 8, 1024, 1024, 128, True),
     ("whisper-tiny encoder", 8, 6, 6, 1500, 1500, 64, False),
     ("whisper-tiny decoder", 8, 6, 6, 448, 448, 64, True),
     ("whisper-tiny cross-attention", 8, 6, 6, 448, 1500, 64, False),
+    ("zamba2-2.7b", 8, 32, 32, 1024, 1024, 80, True),
+)
+# the SSD backward's shapes on the training paths (phases 34-35): (label,
+# b*h, s, p, n, chunk), bf16 x/B/C, b a microbatch of 8 and 80 heads
+TRAIN_SSD = (
+    ("mamba2-2.7b", 640, 1024, 64, 128, 256),
+    ("zamba2-2.7b", 640, 1024, 64, 64, 256),
 )
 # the names of the JAX package's checkpoint leaves for whisper-tiny under
 # AdamW (``repro.checkpoint.ckpt._flatten_with_paths`` of its Trainer's
@@ -2775,14 +2808,12 @@ def phase_flash_bwd() -> dict:
     lse): the training shapes of qwen3-32b and whisper-tiny, then GQA, head
     dims 16-128, a ragged tail, q_offset > 0 and fp32; the forward's lse
     output against the plain forward's; two calls at qwen3-32b's shape bit
-    for bit; ``ssd_intra_chunk`` refusing a CUDA input that needs a
-    gradient.  Then the four training shapes timed beside their bound, the
+    for bit.  Then the five training shapes timed beside their bound, the
     split's seven-product floor, SDPA's backward (``enable_gqa``) and, where
     PERF.md has it, the CUDA-core design's time."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan as ssd
 
     gen = torch.Generator(device=DEV).manual_seed(3)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
@@ -2876,22 +2907,6 @@ def phase_flash_bwd() -> dict:
           "the backward wrapper did not count its launches")
     fa.flash_attention_bwd.launches = launches  # comparisons do not count
 
-    # the SSD kernel has no backward: a CUDA input that needs a gradient is
-    # refused before any launch
-    x = torch.zeros((2, 64, 16), device=DEV, requires_grad=True)
-    n0 = ssd.ssd_intra_chunk.launches
-    try:
-        ssd.ssd_intra_chunk(x, torch.zeros((2, 64), device=DEV), torch.zeros((2, 1), device=DEV),
-                            torch.zeros((2, 64, 16), device=DEV),
-                            torch.zeros((2, 64, 16), device=DEV), 64)
-        refused = ""
-    except NotImplementedError as exc:
-        refused = str(exc)
-    check("Queue 1, item 16" in refused and ssd.ssd_intra_chunk.launches == n0,
-          f"ssd_intra_chunk did not refuse a gradient on the card: {refused!r}")
-    log(f"[30] ssd_intra_chunk on a CUDA input that needs a gradient: NotImplementedError, "
-        f"no launch ({refused[:60]}...)")
-
     rows = [flash_bwd_timed(rnd, *shape, before=BWD_MS_BEFORE.get(label))
             for label, *shape in TRAIN_ATTN]
     return {"name": "flash_attention_bwd_kernel", "route": "cuda", "source": FLASH_SOURCE,
@@ -2900,7 +2915,7 @@ def phase_flash_bwd() -> dict:
                         "src/repro/kernels/flash_attention.py:38",
             "max_abs_err": max(errs), "max_lse_err": max(lse_errs), **rows[0],
             "whisper_encoder_ms": rows[1]["ms"], "whisper_decoder_ms": rows[2]["ms"],
-            "whisper_cross_ms": rows[3]["ms"]}
+            "whisper_cross_ms": rows[3]["ms"], "zamba2_ms": rows[4]["ms"]}
 
 
 def flash_bwd_timed(rnd, b: int, h: int, kv: int, sq: int, skv: int, hd: int,
@@ -2952,20 +2967,166 @@ def flash_bwd_timed(rnd, b: int, h: int, kv: int, sq: int, skv: int, hd: int,
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
 
 
+def phase_ssd_bwd() -> dict:
+    """The SSD backward (``ssd_intra_chunk_bwd``: ``ssd_intra_chunk_bwd_kernel``
+    and its finish, CUDA cores) against ``ssd_intra_chunk_bwd_plain`` on the
+    same inputs: mamba2-2.7b's and zamba2-2.7b's training shapes in bf16 and
+    fp32 (dt = softplus of a normal, so cs falls to about -200 over a chunk
+    of 256, where the reference's fp32 gradient overflows), then small and
+    edge shapes (p, n from 1 to 128, ragged 64-row tiles, chunks of 16 to
+    512, dt = 0 padding rows); two calls at mamba2's shape bit for bit; a
+    shape outside the domain refused before any launch; both training
+    shapes timed beside their bound.  Part of phase 30."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as ssd
+
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
+    f32, b16 = torch.float32, torch.bfloat16
+
+    def inputs(bh, s, p, n, chunk, dtype, pad=0):
+        x = rnd(bh, s, p).to(dtype)
+        B = (0.5 * rnd(bh, s, n)).to(dtype)
+        C = (0.5 * rnd(bh, s, n)).to(dtype)
+        dt = torch.nn.functional.softplus(rnd(bh, s))  # as the model makes dt
+        A = -torch.exp(0.5 * rnd(bh, 1))
+        if pad:  # ops.ssd_scan's padding rows
+            for t in (x, B, C, dt):
+                t[:, s - pad:] = 0
+        return x, dt, A, B, C, rnd(bh, s, p), rnd(bh, s // chunk, p, n)
+
+    # relative to each gradient's largest magnitude: both sides sum in fp32
+    # in other orders (cs, the sums of G, R and dA in fp64 on both), 1e-5;
+    # dx, dB and dC in bf16 are rounded once from fp32 sums that differ in
+    # their last bits, so an element may land one bf16 step (2^-8 of itself)
+    # away, 1e-2
+    tol = {(b16, True): 1e-2, (b16, False): 1e-5, (f32, True): 1e-5, (f32, False): 1e-5}
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    cases = [(*shape, dtype, 0) for _, *shape in TRAIN_SSD for dtype in (b16, f32)]
+    cases += [(8, 64, 8, 16, 16, f32, 0), (8, 64, 8, 16, 16, b16, 5),
+              (3, 96, 24, 40, 48, f32, 7), (2, 256, 128, 128, 256, b16, 0),
+              (2, 256, 128, 128, 256, f32, 0), (2, 64, 1, 1, 64, f32, 0),
+              (2, 1024, 64, 128, 512, b16, 0), (4, 160, 16, 16, 80, b16, 0),
+              (2, 128, 100, 72, 128, f32, 3)]
+    errs = []
+    launches = ssd.ssd_intra_chunk_bwd.launches
+    for bh, s, p, n, chunk, dtype, pad in cases:
+        args = inputs(bh, s, p, n, chunk, dtype, pad)
+        got = ssd.ssd_intra_chunk_bwd(*args, chunk)
+        want = ssd.ssd_intra_chunk_bwd_plain(*args, chunk)
+        torch.cuda.synchronize()
+        e = [float((g.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30))
+             for g, w in zip(got, want)]
+        t = [tol[dtype, name in ("dx", "dB", "dC")] for name in names]
+        label = (f"bh={bh} s={s} p={p} n={n} chunk={chunk} {str(dtype)[6:]}"
+                 + (f", {pad} padding rows" if pad else ""))
+        check(all(np.isfinite(e)) and all(a <= b for a, b in zip(e, t))
+              and all(bool(torch.isfinite(g).all()) for g in got),
+              f"ssd_intra_chunk_bwd_kernel != plain at {label}: relative errors "
+              f"{dict(zip(names, e))} (tol {dict(zip(names, t))})")
+        check(tuple(g.dtype for g in got) == (dtype, f32, f32, dtype, dtype),
+              f"the SSD backward's dtypes at {label}: {[g.dtype for g in got]}")
+        errs.append(max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)))
+        log(f"[30] ssd backward {label}: max error relative to the largest magnitude "
+            + ", ".join(f"{k} {v:.3g}" for k, v in zip(names, e))
+            + f" (tol {t[0]:g} dx/dB/dC, {t[1]:g} ddt/dA)")
+        del args, got, want
+    # no atomics and a fixed order of summation: two calls give the same bits
+    _, bh, s, p, n, chunk = TRAIN_SSD[0]
+    args = inputs(bh, s, p, n, chunk, b16)
+    first = ssd.ssd_intra_chunk_bwd(*args, chunk)
+    second = ssd.ssd_intra_chunk_bwd(*args, chunk)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, c)) for a, c in zip(first, second)]
+    check(all(same), f"two SSD backward calls at mamba2's shape differ: {dict(zip(names, same))}")
+    log("[30] ssd backward at mamba2-2.7b's training shape, two calls: dx, ddt, dA, dB, dC bit "
+        "for bit equal")
+    del args, first, second
+    check(ssd.ssd_intra_chunk_bwd.launches == launches + len(cases) + 2,
+          "the SSD backward wrapper did not count its launches")
+    # a width outside the domain is refused before any launch (no other
+    # kernel takes it), and the forward on such an input that needs a
+    # gradient is refused before its own launch
+    x, dt, A, B, C, gy, gst = inputs(2, 64, 136, 16, 64, f32)
+    n0 = ssd.ssd_intra_chunk.launches
+    for call in (lambda: ssd.ssd_intra_chunk_bwd(x, dt, A, B, C, gy, gst, 64),
+                 lambda: ssd.ssd_intra_chunk(x.requires_grad_(), dt, A, B, C, 64)):
+        try:
+            call()
+        except ValueError as exc:
+            refused = str(exc)
+        else:
+            raise RuntimeError("check failed: p = 136 was not refused by the SSD backward")
+    check(ssd.ssd_intra_chunk_bwd.launches == launches + len(cases) + 2
+          and ssd.ssd_intra_chunk.launches == n0, "a refused SSD call launched")
+    log(f"    p = 136 refused before any launch: {refused}")
+    ssd.ssd_intra_chunk_bwd.launches = launches  # comparisons do not count
+    rows = [ssd_bwd_timed(inputs(bh, s, p, n, chunk, b16), chunk, label)
+            for label, bh, s, p, n, chunk in TRAIN_SSD]
+    return {"name": "ssd_intra_chunk_bwd_kernel", "route": "cuda", "source": SSD_BWD_SOURCE,
+            "replaces": "none: the JAX package differentiates its jnp ssd_chunked_ref "
+                        "(src/repro/models/ssm.py:83), since jax.grad cannot pass through "
+                        "pallas_call (src/repro/kernels/ssd_scan.py:75); backward of "
+                        "src/repro/kernels/ssd_scan.py:32",
+            "max_abs_err": max(errs), **rows[0], "library_ms": None,
+            "zamba2_ms": rows[1]["ms"]}
+
+
+def ssd_bwd_timed(args, chunk: int, label: str) -> dict:
+    """The SSD backward (one call: the kernel and its finish) and its plain
+    version at one training shape; the bound from the bytes (x, B, C, dt,
+    gy, gst and A read once; dx, dB, dC, ddt and dA written once) and the
+    products on the causal triangles counted once (S, dW, dx, dC, dB, and
+    the state terms), at the bf16 tensor-core rate with each product that
+    has an fp32 operand counted twice (split into two bf16 terms, as the
+    forward's bound counts them); the same products at the fp32 CUDA-core
+    peak, this design's own floor, logged."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as ssd
+
+    x, dt, A, B, C, gy, gst = args
+    bh, s, p = x.shape
+    n = B.shape[-1]
+    nc = s // chunk
+    n0 = ssd.ssd_intra_chunk_bwd.launches
+    ms = cuda_ms(lambda: ssd.ssd_intra_chunk_bwd(*args, chunk), reps=5, n=5)
+    ssd.ssd_intra_chunk_bwd.launches = n0
+    plain_ms = cuda_ms(lambda: ssd.ssd_intra_chunk_bwd_plain(*args, chunk), reps=3, n=1)
+    pairs = chunk * (chunk + 1) // 2  # causal (i, j) pairs of a chunk
+    s_flops = bh * nc * 2 * pairs * n  # C B^T, bf16 operands
+    other = bh * nc * (pairs * (4 * p + 4 * n) + 4 * chunk * p * n)  # dW, dx, dC, dB; state
+    es = x.element_size()
+    nbytes = (2 * bh * s * (p + 2 * n) * es  # x, B, C read; dx, dB, dC written
+              + 2 * bh * s * 4 + bh * s * p * 4 + bh * nc * p * n * 4 + 2 * bh * 4)
+    bms, by, terms = bound(nbytes, [(s_flops + 2 * other, BF16_FLOP_PER_S)])
+    floor_ms = (s_flops + other) / FP32_FLOP_PER_S * 1e3
+    log(f"    training shape {label} (bh={bh} s={s} p={p} n={n} chunk={chunk}, bf16 x/B/C; "
+        f"{ssd.bwd_smem_bytes(chunk, p, n)} B of shared memory a block): backward {ms:.4f} ms "
+        f"({(s_flops + other) / ms / 1e9:.1f} TFLOP/s of {(s_flops + other) / 1e9:.2f} GFLOP), "
+        f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({terms}; {nbytes / 1e6:.1f} MB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), the products at the fp32 CUDA-core peak "
+        f"{floor_ms:.4f} ms ({FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+
+
 def _train_counts() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
 
     return {"flash_attention_kernel": fa.flash_attention_fwd.launches,
             "flash_attention_bwd_kernel": fa.flash_attention_bwd.launches,
-            "ssd_intra_chunk_kernel": ssd.ssd_intra_chunk.launches}
+            "ssd_intra_chunk_kernel": ssd.ssd_intra_chunk.launches,
+            "ssd_intra_chunk_bwd_kernel": ssd.ssd_intra_chunk_bwd.launches}
 
 
 def _reset_train_counts() -> None:
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
 
     _reset_model_counts()
-    fa.flash_attention_bwd.launches = 0
+    fa.flash_attention_bwd.launches = ssd.ssd_intra_chunk_bwd.launches = 0
 
 
 def _trainer(cfg, steps: int, seq: int, batch: int, ckpt_dir=None, ckpt_every: int = 100,
@@ -2986,14 +3147,26 @@ def _trainer(cfg, steps: int, seq: int, batch: int, ckpt_dir=None, ckpt_every: i
 
 def _attn_calls_per_step(cfg) -> tuple[int, int]:
     """(forward, backward) attention launches of one train step: each
-    layer's attentions per microbatch, forward once more per layer when it
-    is recomputed under remat."""
-    per = {"dense": cfg.n_layers, "moe": cfg.n_layers, "vlm": cfg.n_layers,
-           "encdec": cfg.enc_layers + 2 * cfg.n_layers}[cfg.family]
+    layer's attentions per microbatch (the hybrid's shared block once a
+    stage, the ssm family none), forward once more when a layer or stage is
+    recomputed under remat (encdec: its decoder layers' two)."""
+    stages = cfg.n_layers // max(cfg.shared_attn_every, 1)
+    per = {"dense": cfg.n_layers, "moe": cfg.n_layers, "vlm": cfg.n_layers, "ssm": 0,
+           "hybrid": stages, "encdec": cfg.enc_layers + 2 * cfg.n_layers}[cfg.family]
     mb = cfg.microbatches
-    recomputed = 0 if cfg.remat == "none" else (
-        cfg.n_layers * (2 if cfg.family == "encdec" else 1))
+    recomputed = 0 if cfg.remat == "none" else {
+        "encdec": 2 * cfg.n_layers, "ssm": 0, "hybrid": stages}.get(cfg.family, cfg.n_layers)
     return mb * (per + recomputed), mb * per
+
+
+def _ssd_calls_per_step(cfg) -> tuple[int, int]:
+    """(forward, backward) SSD launches of one train step: one forward and
+    one backward per Mamba2 layer and microbatch, and the forward once more
+    when the layer (ssm) or its stage (hybrid) is recomputed under remat."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return 0, 0
+    mb = cfg.microbatches
+    return mb * cfg.n_layers * (1 if cfg.remat == "none" else 2), mb * cfg.n_layers
 
 
 def phase_train_qwen3(steps: int = 8, seq: int = 1024, batch: int = 8) -> dict:
@@ -3035,7 +3208,7 @@ def phase_train_qwen3(steps: int = 8, seq: int = 1024, batch: int = 8) -> dict:
           "a loss or grad norm is not finite")
     fwd, bwd = _attn_calls_per_step(cfg)
     want = {"flash_attention_kernel": steps * fwd, "flash_attention_bwd_kernel": steps * bwd,
-            "ssd_intra_chunk_kernel": 0}
+            "ssd_intra_chunk_kernel": 0, "ssd_intra_chunk_bwd_kernel": 0}
     check(launches == want, f"training launches {launches}, expected {want}")
     med = float(np.median([h["time_s"] for h in hist[1:]]))
     tokens = batch * seq
@@ -3102,7 +3275,7 @@ def phase_train_whisper(steps: int = 8, seq: int = 448, batch: int = 8, every: i
         launches = _train_counts()
         fwd, bwd = _attn_calls_per_step(cfg)
         want = {"flash_attention_kernel": steps * fwd, "flash_attention_bwd_kernel": steps * bwd,
-                "ssd_intra_chunk_kernel": 0}
+                "ssd_intra_chunk_kernel": 0, "ssd_intra_chunk_bwd_kernel": 0}
         check(launches == want, f"whisper training launches {launches}, expected {want}")
         check(all(np.isfinite(h["loss"]) for h in hist_a), "a whisper loss is not finite")
         med = float(np.median([h["time_s"] for h in hist_a[1:]]))
@@ -3275,11 +3448,25 @@ def _card_vs_cpu_step(cfg, b: int, s: int, lr: float, rescale_qk: bool = False) 
     return out
 
 
-def phase_train_card_vs_cpu() -> dict:
+# phase 33's float32 steps: (arch, depth, b, s, wq and wk rescaled, checked)
+CARD_VS_CPU_DENSE = (("qwen3-32b", 1, 2, 128, False, True),
+                     ("whisper-tiny", None, 2, 64, False, False),
+                     ("whisper-tiny", None, 2, 64, True, True))
+# phase 36's: mamba2-2.7b at depth 2 and zamba2-2.7b at depth 6, its one
+# stage (6 Mamba2 layers and the shared attention block), 256 tokens: one
+# chunk of 256, where cs falls to about -200
+CARD_VS_CPU_SSM = (("mamba2-2.7b", 2, 1, 256, False, True),
+                   ("zamba2-2.7b", 6, 1, 256, False, True))
+
+
+def phase_train_card_vs_cpu(runs=CARD_VS_CPU_DENSE, phase: int = 33) -> dict:
     """One float32 train step on the card and on the CPU from the same
-    weights and batch (AdamW at lr 1e-3): qwen3-32b at full width, depth 1,
-    b = 2, s = 128, one microbatch, and whisper-tiny at full width and
-    depth (b = 2, s = 64 against its 1500 frames).  Checked: the loss and
+    weights and batch (AdamW at lr 1e-3), per entry of ``runs``: in phase 33
+    qwen3-32b at full width, depth 1, b = 2, s = 128, one microbatch, and
+    whisper-tiny at full width and depth (b = 2, s = 64 against its 1500
+    frames); in phase 36 mamba2-2.7b and zamba2-2.7b (``CARD_VS_CPU_SSM``),
+    through both SSD kernels and, for zamba2, both attention kernels; each
+    run's launches against the reckoning.  Checked: the loss and
     grad norm within a relative 1e-4; every gradient tensor the optimizer
     is given within a relative Frobenius 1e-3 of the CPU's (float32 sums in
     other orders, the attention backward kernel against autograd through
@@ -3303,20 +3490,19 @@ def phase_train_card_vs_cpu() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 products on the card
     torch.backends.cudnn.allow_tf32 = False
     free = subprocess.run(["free", "-g"], capture_output=True, text=True).stdout.split("\n")
-    log(f"[33] host memory (free -g): {' | '.join(line.strip() for line in free[:2])}")
+    log(f"[{phase}] host memory (free -g): {' | '.join(line.strip() for line in free[:2])}")
     launches: dict = {}
     lr = 1e-3
-    runs = (("qwen3-32b", 1, 2, 128, False, True), ("whisper-tiny", None, 2, 64, False, False),
-            ("whisper-tiny", None, 2, 64, True, True))
     for arch, depth, b, s, rescale, checked in runs:
         cfg = _model_cfg(arch, depth, dtype="float32", microbatches=1)
         r = _card_vs_cpu_step(cfg, b, s, lr, rescale_qk=rescale)
         hc, hp = r["card"], r["cpu"]
         fwd, bwd = _attn_calls_per_step(cfg)
+        sfwd, sbwd = _ssd_calls_per_step(cfg)
         counts = r["launches"]
-        check(counts["flash_attention_kernel"] == fwd
-              and counts["flash_attention_bwd_kernel"] == bwd,
-              f"{arch}: launches {counts}, expected forward {fwd}, backward {bwd}")
+        want = {"flash_attention_kernel": fwd, "flash_attention_bwd_kernel": bwd,
+                "ssd_intra_chunk_kernel": sfwd, "ssd_intra_chunk_bwd_kernel": sbwd}
+        check(counts == want, f"{arch}: launches {counts}, expected {want}")
         launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
         d_loss = abs(hc["loss"] - hp["loss"]) / abs(hp["loss"])
         d_norm = abs(hc["grad_norm"] - hp["grad_norm"]) / abs(hp["grad_norm"])
@@ -3339,6 +3525,124 @@ def phase_train_card_vs_cpu() -> dict:
                   f"the CPU's, beyond 2.2 lr")
         free_device()
     return launches
+
+def phase_train_ssm(arch: str, phase: int, steps: int = 6, seq: int = 1024, batch: int = 8,
+                    depth: int | None = None) -> dict:
+    """``Trainer`` on an ssm or hybrid config (mamba2-2.7b: 64 Mamba2 layers;
+    zamba2-2.7b: 54 and the shared attention block at 9 stages) at full
+    width, bf16, the config's optimizer, remat and microbatches as the
+    launcher sets them, ``SyntheticLM`` at seq 1024 and global batch 8,
+    ``steps`` steps: per-step loss, grad norm, lr and time, each finite;
+    the median step and tokens/s; peak memory against the reckoning (16
+    bytes a parameter, 4 fp32 copies of a microbatch's logits and the
+    checkpointed layers' or stages' bf16 inputs; 8 GiB allowed); the SSD
+    kernels' (and the hybrid's attention kernels') launches per step
+    against ``_ssd_calls_per_step``/``_attn_calls_per_step``; then a profile
+    of one more step with the SSD backward's share of it."""
+    import torch
+
+    from repro_torch.train import SPAN_GRADS, SPAN_OPTIMIZER
+
+    free_device()
+    cfg = _model_cfg(arch, depth)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = _trainer(cfg, steps, seq, batch)  # the CUDA device: no device argument
+    tr.init(0)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tr.state["params"].parameters())
+    state_bytes = torch.cuda.memory_allocated()
+    log(f"[{phase}] {arch} training, full width, depth {cfg.n_layers}: {n / 1e9:.3f} B "
+        f"parameters, weights and {cfg.optimizer} state {state_bytes / 2**30:.2f} GiB, made in "
+        f"{time.perf_counter() - t0:.2f} s; remat {cfg.remat}, {cfg.microbatches} "
+        f"microbatch(es), chunk {cfg.ssm.chunk}, global batch {batch} x {seq} tokens")
+    _reset_train_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = tr.train(steps, log_every=0)
+    wall = time.perf_counter() - t0
+    launches = _train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for h in hist:
+        log(f"    step {h['step']}: loss {h['loss']:.4f}, grad norm {h['grad_norm']:.4f}, lr "
+            f"{h['lr']:.3g}, {h['time_s'] * 1e3:.1f} ms")
+    check(all(np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist),
+          f"an {arch} loss or grad norm is not finite")
+    fwd, bwd = _attn_calls_per_step(cfg)
+    sfwd, sbwd = _ssd_calls_per_step(cfg)
+    want = {"flash_attention_kernel": steps * fwd, "flash_attention_bwd_kernel": steps * bwd,
+            "ssd_intra_chunk_kernel": steps * sfwd, "ssd_intra_chunk_bwd_kernel": steps * sbwd}
+    check(launches == want, f"{arch} training launches {launches}, expected {want}")
+    med = float(np.median([h["time_s"] for h in hist[1:]]))
+    vp = tr.state["params"]["head"].shape[-1]  # the padded vocabulary
+    mb_tokens = batch // cfg.microbatches * seq
+    # the remat segments' inputs: a layer each (ssm), a stage each (hybrid)
+    saved = cfg.n_layers // (cfg.shared_attn_every if cfg.family == "hybrid" else 1)
+    reckoned = 16 * n + 4 * 4 * mb_tokens * vp + saved * mb_tokens * cfg.d_model * 2
+    log(f"    {steps} steps in {wall:.2f} s; median step (steps 1-{steps - 1}) {med * 1e3:.1f} "
+        f"ms: {batch * seq / med:.0f} tokens/s; peak device memory {peak / 2**30:.2f} GiB "
+        f"(reckoned {reckoned / 2**30:.2f} GiB: 16 bytes x {n / 1e9:.3f} B parameters + 4 fp32 "
+        f"copies of a microbatch's logits ({mb_tokens} x {vp}) + {saved} checkpointed bf16 "
+        f"inputs); launches {launches}, per step SSD forward {sfwd}, backward {sbwd}, "
+        f"attention forward {fwd}, backward {bwd}")
+    check(peak <= reckoned + 8 * 2**30,
+          f"peak device memory {peak / 2**30:.2f} GiB exceeds the reckoning "
+          f"{reckoned / 2**30:.2f} GiB by more than 8 GiB")
+    _, wall, kms = profile_run(lambda: tr.train(1, log_every=0), f"one {arch} train step",
+                               top=12, spans=(SPAN_GRADS, SPAN_OPTIMIZER))
+    ssd_bwd = kms["ssd_intra_chunk_bwd_kernel"] + kms["ssd_intra_chunk_bwd_finish_kernel"]
+    attn_bwd = sum(kms[name] for name in BWD_BF16_KERNELS)
+    log(f"    the SSD backward in the profiled step: {ssd_bwd:.2f} ms of {wall * 1e3:.1f} ms "
+        f"({100 * ssd_bwd / (wall * 1e3):.1f}%; ssd_intra_chunk_bwd_kernel "
+        f"{kms['ssd_intra_chunk_bwd_kernel']:.2f} ms, its finish "
+        f"{kms['ssd_intra_chunk_bwd_finish_kernel']:.2f} ms over {sbwd} calls); the SSD "
+        f"forward {kms['ssd_intra_chunk_kernel']:.2f} ms over {sfwd}"
+        + (f"; the attention backward {attn_bwd:.2f} ms, forward "
+           f"{kms['flash_attention_kernel']:.2f} ms" if fwd else ""))
+    del tr
+    _ssd_bwd_plain_gap(cfg, steps, seq, batch, STEP0_GAP_TOL[arch])
+    return launches
+
+
+# the step-0 check's tolerance on the grad norms, by config: how far the
+# step moves when the SSD backward's outputs carry fp32-rounding-sized
+# noise (1 + 1e-7 N(0, 1), three seeds; benchmarks/torch_ssd_bwd_step0.py,
+# PERF.md section 6, on an NVIDIA H100 80GB HBM3 at 700 W): mamba2-2.7b's
+# grad norm 3.7e-6 to 2.2e-5, zamba2-2.7b's 7.1e-4 to 1.16e-3 (its
+# backward grows the gradient some 3e7-fold from the top Mamba2 layers to
+# the bottom, and amplifies such differences)
+STEP0_GAP_TOL = {"mamba2-2.7b": 1e-3, "zamba2-2.7b": 3e-3}
+
+
+def _ssd_bwd_plain_gap(cfg, steps: int, seq: int, batch: int, tol: float) -> None:
+    """Step 0 of a training phase's run again, from the same weights and
+    batch, once through the SSD backward kernel and once with
+    ``ssd_intra_chunk_bwd_plain`` on the card in its place: the forward is
+    the same, so the losses must be equal; the gradients differ by the
+    kernel's order of summation and its bf16 roundings of dx, dB and dC
+    only, so the grad norms must agree within ``tol`` (``STEP0_GAP_TOL``)."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    hist = []
+    for plain in (False, True):
+        free_device()
+        tr = _trainer(cfg, steps, seq, batch)
+        tr.init(0)
+        kernel = ssd.ssd_intra_chunk_bwd
+        if plain:
+            ssd.ssd_intra_chunk_bwd = ssd.ssd_intra_chunk_bwd_plain
+        try:
+            hist.append(tr.train(1, log_every=0)[0])
+        finally:
+            ssd.ssd_intra_chunk_bwd = kernel
+        del tr
+    (hk, hp), gap = hist, abs(hist[0]["grad_norm"] - hist[1]["grad_norm"]) / hist[1]["grad_norm"]
+    log(f"    step 0 with the SSD backward kernel / with ssd_intra_chunk_bwd_plain on the card: "
+        f"loss {hk['loss']:.6f} / {hp['loss']:.6f}, grad norm {hk['grad_norm']:.6f} / "
+        f"{hp['grad_norm']:.6f} (relative {gap:.3g}, tol {tol:g})")
+    check(hk["loss"] == hp["loss"] and gap <= tol,
+          f"{cfg.name}: the SSD backward kernel's step 0 differs from the plain backward's")
+
 
 def main() -> int:
     import dataclasses
@@ -3422,10 +3726,18 @@ def main() -> int:
     elapsed("29")
     # training: the attention backward kernel (phase 30), then the main
     # training path (31), a restart from a checkpoint (32) and card == CPU (33)
-    kernels.append(phase_flash_bwd())
+    kernels += [phase_flash_bwd(), phase_ssd_bwd()]
     elapsed("30")
     trained = [phase_train_qwen3(), phase_train_whisper(), phase_train_card_vs_cpu()]
     elapsed("31-33")
+    # the ssm and hybrid families train through both SSD kernels (34-35),
+    # then one float32 step of each, card against CPU (36)
+    trained.append(phase_train_ssm("mamba2-2.7b", 34))
+    elapsed("34")
+    trained.append(phase_train_ssm("zamba2-2.7b", 35))
+    elapsed("35")
+    trained.append(phase_train_card_vs_cpu(CARD_VS_CPU_SSM, phase=36))
+    elapsed("36")
     log(f"    launches on the invariants' paths: Table 1 {invariants[0]}, "
         f"whole graph {invariants[1]}, 256-node suite {invariants[2]}, "
         f"layout and remesh {invariants[3]}, collectives {invariants[4]}, "
@@ -3437,7 +3749,8 @@ def main() -> int:
         f"as text {served[6]}, whisper {served[7]}")
     launches.update({name: sum(run[name] for run in served) for name in served[0]})
     log(f"    launches on the training paths: qwen3 {trained[0]}, whisper {trained[1]}, "
-        f"card against CPU {trained[2]}")
+        f"card against CPU {trained[2]}, mamba2 {trained[3]}, zamba2 {trained[4]}, "
+        f"card against CPU (ssm, hybrid) {trained[5]}")
     for name in trained[0]:
         launches[name] = launches.get(name, 0) + sum(run[name] for run in trained)
     for kern in kernels:

@@ -26,7 +26,7 @@ __all__ = ["NVCC_FLAGS", "SOURCES", "build", "check_tensor", "library", "error_s
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
-SOURCES = ("bfs_sweep.cu", "flash_attention.cu", "ssd_scan.cu")
+SOURCES = ("bfs_sweep.cu", "flash_attention.cu", "ssd_scan.cu", "ssd_scan_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -123,6 +123,8 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_bwd_probe_launch.restype = i
         lib.ssd_intra_chunk_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.ssd_intra_chunk_launch.restype = i
+        lib.ssd_intra_chunk_bwd_launch.argtypes = [p] * 13 + [i] * 6 + [p]
+        lib.ssd_intra_chunk_bwd_launch.restype = i
         lib.ssd_probe_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, p]
         lib.ssd_probe_launch.restype = i
         lib.repro_cuda_error_string.argtypes = [i]

@@ -34,7 +34,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor
              C: torch.Tensor, chunk: int, init_state: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full SSD: the intra-chunk kernel, then the inter-chunk state scan and
-    the cross-chunk output term in PyTorch ops.  x (b, s, h, p), dt (b, s, h),
+    the cross-chunk output term in PyTorch ops; differentiable
+    (``_ssd.ssd_intra_chunk``: the backward kernel on a CUDA tensor, the
+    inter-chunk scan under autograd).  x (b, s, h, p), dt (b, s, h),
     A (h,), B/C (b, s, h, n), init_state (b, h, p, n) ->
     (y (b, s, h, p) fp32, final state (b, h, p, n) fp32)."""
     b, s_orig, h, p = x.shape

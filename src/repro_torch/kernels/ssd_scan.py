@@ -1,6 +1,7 @@
-"""The Mamba2 SSD intra-chunk term: the wrapper of the hand-written CUDA
-kernels of ``csrc/ssd_scan.cu`` and their plain PyTorch version (the
-counterpart of ``repro.kernels.ssd_scan.ssd_intra_chunk``).
+"""The Mamba2 SSD intra-chunk term and its gradient: the wrappers of the
+hand-written CUDA kernels of ``csrc/ssd_scan.cu`` and ``csrc/ssd_scan_bwd.cu``
+and their plain PyTorch versions (the counterpart of
+``repro.kernels.ssd_scan.ssd_intra_chunk``).
 
 Per (head, chunk) of Q positions, in fp32::
 
@@ -8,15 +9,29 @@ Per (head, chunk) of Q positions, in fp32::
     y_intra = ((C Bᵀ) ⊙ tril(exp(cs_i − cs_j)) ⊙ dt_j) X        (Q, p)
     state   = Xᵀ (B ⊙ dt ⊙ exp(cs_Q − cs))                      (p, n)
 
-``ssd_intra_chunk`` launches a kernel on a CUDA tensor or raises; on a CPU
-tensor it runs ``ssd_intra_chunk_plain``.  The dtype picks the kernel:
-bfloat16 runs ``ssd_intra_chunk_kernel`` (tensor cores through ``wgmma``,
-the chunk loaded by TMA; chunk a multiple of 64, p and n multiples of 16 up
-to 128, 16-byte aligned tensors: ``check_bf16_domain``), float32 runs
+``ssd_intra_chunk`` is the differentiable entry point.  Its forward
+launches a kernel on a CUDA tensor or raises; on a CPU tensor it runs
+``ssd_intra_chunk_plain``.  The dtype picks the kernel: bfloat16 runs
+``ssd_intra_chunk_kernel`` (tensor cores through ``wgmma``, the chunk
+loaded by TMA; chunk a multiple of 64, p and n multiples of 16 up to 128,
+16-byte aligned tensors: ``check_bf16_domain``), float32 runs
 ``ssd_intra_chunk_fp32_kernel`` (CUDA cores, which keep the reference's
 fp32 products).  It counts its launches in ``ssd_intra_chunk.launches``.
-The inter-chunk state scan stays in PyTorch ops (``ops.ssd_scan``), as the
-reference keeps it in jnp.
+
+Where autograd records and an input needs a gradient, the forward runs
+inside ``_SsdIntraChunk``, whose backward is ``ssd_intra_chunk_bwd``: on a
+CUDA tensor it launches ``ssd_intra_chunk_bwd_kernel`` and
+``ssd_intra_chunk_bwd_finish_kernel`` (CUDA cores, fp32, no atomics; p and
+n up to 128: ``check_bwd_domain``) and counts one in
+``ssd_intra_chunk_bwd.launches`` per call; on a CPU tensor it runs
+``ssd_intra_chunk_bwd_plain``.  Both take exp(cs_i − cs_j) on the causal
+triangle only, where it is at most 1: above it the exponent grows with the
+chunk and overflows fp32 (past 88.7) at the configs' chunk of 256, and
+autograd through the masked forward then gives NaN to dt and A.  The JAX
+package has no counterpart: it differentiates its jnp
+``repro.models.ssm.ssd_chunked_ref``.  The inter-chunk state scan stays in
+PyTorch ops under autograd (``ops.ssd_scan``), as the reference keeps it
+in jnp.
 """
 from __future__ import annotations
 
@@ -24,12 +39,14 @@ import torch
 
 from . import _build
 
-__all__ = ["MAX_HEADDIM", "bf16_smem_bytes", "check_bf16_domain", "ssd_intra_chunk",
-           "ssd_intra_chunk_plain", "ssd_wgmma_layout_probe"]
+__all__ = ["MAX_HEADDIM", "bf16_smem_bytes", "bwd_smem_bytes", "check_bf16_domain",
+           "check_bwd_domain", "ssd_intra_chunk", "ssd_intra_chunk_bwd",
+           "ssd_intra_chunk_bwd_plain", "ssd_intra_chunk_plain", "ssd_wgmma_layout_probe"]
 
 # fp32: p / 16 output columns per thread, at most 8; bf16: p and n in 8
 # slabs of 16 columns at most
 MAX_HEADDIM = 128
+BWD_TILE = 64  # rows of the backward's row and column tiles
 SMEM_LIMIT = 232448  # shared memory one block can have on the H100
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -70,42 +87,153 @@ def check_bf16_domain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: tor
                              f"(data_ptr {t.data_ptr():#x})")
 
 
+def _bwd_cols(d: int) -> int:
+    """Columns the backward kernel keeps of a width ``d``: 16 times the
+    least of 1, 2, 4, 8 that covers ``d / 16`` (its instantiations)."""
+    per = 1
+    while 16 * per < d:
+        per *= 2
+    return 16 * per
+
+
+def bwd_smem_bytes(chunk: int, p: int, n: int) -> int:
+    """Shared memory of ``ssd_intra_chunk_bwd_kernel`` (``bwd_smem_bytes``
+    in ``csrc/ssd_scan_bwd.cu``): the chunk's cs (fp64) and dt, a (16, 64)
+    fp64 tile of partial column sums, a column tile's two state terms, two
+    (64, n) and two (64, p) fp32 tiles, their columns padded to
+    ``_bwd_cols`` plus one, and two (64, 65) fp32 tiles of W and dS."""
+    t = BWD_TILE
+    return (12 * chunk + 8 * 16 * t + 4 * 2 * t
+            + 4 * (2 * t * (_bwd_cols(n) + 1) + 2 * t * (_bwd_cols(p) + 1) + 2 * t * (t + 1)))
+
+
+def check_bwd_domain(bh: int, s: int, p: int, n: int, chunk: int) -> None:
+    """Raise ``ValueError`` unless ``ssd_intra_chunk_bwd_kernel`` takes this
+    shape (either dtype): p and n from 1 to 128 (at most 8 columns of 16 a
+    thread), the chunk's cs, dt and tiles within a block's shared memory,
+    and grid dimensions within CUDA's 65535 (heads, chunks).  Device-free:
+    the wrapper calls it before any launch, and nothing falls back."""
+    if chunk <= 0 or s % chunk:
+        raise ValueError(f"s={s} is not a multiple of chunk={chunk}")
+    for name, d in (("p", p), ("n", n)):
+        if not 1 <= d <= MAX_HEADDIM:
+            raise ValueError(f"ssd_intra_chunk_bwd_kernel takes {name} from 1 to "
+                             f"{MAX_HEADDIM}, got {name}={d}")
+    if bwd_smem_bytes(chunk, p, n) > SMEM_LIMIT:
+        raise ValueError(f"ssd_intra_chunk_bwd_kernel needs {bwd_smem_bytes(chunk, p, n)} "
+                         f"bytes of shared memory at chunk={chunk}, p={p}, n={n}; a block "
+                         f"has {SMEM_LIMIT}")
+    if bh > 65535 or s // chunk > 65535:
+        raise ValueError(f"ssd_intra_chunk_bwd_kernel takes at most 65535 heads and chunks, "
+                         f"got bh={bh}, chunks={s // chunk}")
+
+
+def _causal_exp(cs: torch.Tensor) -> torch.Tensor:
+    """L = exp(cs_i − cs_j) on the causal triangle (i ≥ j), 0 above it,
+    from cs (..., Q).  exp is taken of the triangle only: above it the
+    exponent is positive (dt ≥ 0, A < 0) and overflows fp32 at long
+    chunks, and a gradient through ``where(tril, exp(.), 0)`` would be
+    0 · inf = NaN there."""
+    chunk = cs.shape[-1]
+    tril = torch.ones((chunk, chunk), dtype=torch.bool, device=cs.device).tril()
+    return torch.exp(torch.where(tril, cs[..., :, None] - cs[..., None, :], -torch.inf))
+
+
+def _work_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic: fp32, as the kernels', or float64 for
+    float64 operands."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def ssd_intra_chunk_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                           B: torch.Tensor, C: torch.Tensor, chunk: int
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in PyTorch ops, every chunk at once.
     x (bh, s, p), dt (bh, s), A (bh, 1), B/C (bh, s, n) ->
-    (y_intra (bh, s, p) fp32, states (bh, s / chunk, p, n) fp32)."""
+    (y_intra (bh, s, p) fp32, states (bh, s / chunk, p, n) fp32); float64
+    operands are computed and returned in float64 (a test's oracle)."""
     bh, s, p = x.shape
     n = B.shape[-1]
     nc = s // chunk
-    xf = x.float().reshape(bh, nc, chunk, p)
-    dtc = dt.float().reshape(bh, nc, chunk)
-    Bf = B.float().reshape(bh, nc, chunk, n)
-    Cf = C.float().reshape(bh, nc, chunk, n)
-    cs = torch.cumsum(dtc * A.float().reshape(bh, 1, 1), dim=-1)  # (bh, nc, Q)
+    wdt = _work_dtype(x)
+    xf = x.to(wdt).reshape(bh, nc, chunk, p)
+    dtc = dt.to(wdt).reshape(bh, nc, chunk)
+    Bf = B.to(wdt).reshape(bh, nc, chunk, n)
+    Cf = C.to(wdt).reshape(bh, nc, chunk, n)
+    cs = torch.cumsum(dtc * A.to(wdt).reshape(bh, 1, 1), dim=-1)  # (bh, nc, Q)
     scores = torch.matmul(Cf, Bf.transpose(-1, -2))  # (bh, nc, Q, Q)
-    tril = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
-    L = torch.where(tril, torch.exp(cs[..., :, None] - cs[..., None, :]), 0.0)
-    w = scores * L * dtc[..., None, :]
+    w = scores * _causal_exp(cs) * dtc[..., None, :]
     y = torch.matmul(w, xf).reshape(bh, s, p)
     bw = Bf * (torch.exp(cs[..., -1:] - cs) * dtc)[..., None]
     states = torch.matmul(xf.transpose(-1, -2), bw)  # (bh, nc, p, n)
     return y, states
 
 
-def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                    B: torch.Tensor, C: torch.Tensor, chunk: int
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (bh, s, p) and B/C (bh, s, n) in fp32 or bf16 (one dtype), dt (bh, s)
-    and A (bh, 1) fp32, s a multiple of ``chunk`` ->
-    (y_intra (bh, s, p) fp32, states (bh, s / chunk, p, n) fp32).
-    Launches ``ssd_intra_chunk_kernel`` (bf16: one block per chunk and
-    head) or ``ssd_intra_chunk_fp32_kernel`` (fp32: one block per 64-row
-    tile, chunk and head, plus one per chunk and head for the state) on a
-    CUDA tensor; runs ``ssd_intra_chunk_plain`` on a CPU tensor.  A CUDA
-    input that needs a gradient raises ``NotImplementedError`` before any
-    launch: the kernel has no backward yet."""
+def ssd_intra_chunk_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                              B: torch.Tensor, C: torch.Tensor, gy: torch.Tensor,
+                              gst: torch.Tensor, chunk: int
+                              ) -> tuple[torch.Tensor, ...]:
+    """The backward kernels' function in PyTorch ops, every chunk at once:
+    the gradient of ``ssd_intra_chunk_plain`` at (x, dt, A, B, C) given gy
+    (bh, s, p) and gst (bh, s / chunk, p, n), the gradients of y_intra and
+    of the states -> (dx, ddt, dA, dB, dC): dx, dB and dC in the inputs'
+    dtype, ddt (bh, s) and dA (bh, 1) fp32 (float64 operands: all float64).
+    Per chunk, with S = C Bᵀ,
+    L = exp(cs_i − cs_j) on the triangle, W = S L dt_j and w_j =
+    exp(cs_Q − cs_j) dt_j::
+
+        dW = gy Xᵀ,  dS = dW L dt_j,  G = dW W
+        dx = Wᵀ gy + w (B gstᵀ),  dC = dS B,  dB = dSᵀ C + w (X gst)
+        u_j = x_j · (gst B_j)
+        dcs = rowsum(G) − colsum(G) − w u,  dcs_Q += Σ w u
+        ddt = colsum(dW S L) + exp(cs_Q − cs) u + A R,  dA = Σ dt R
+
+    with R_t = Σ_{i ≥ t} dcs_i (cs = cumsum(dt A))."""
+    bh, s, p = x.shape
+    n = B.shape[-1]
+    nc = s // chunk
+    wdt = _work_dtype(x)
+    xf = x.to(wdt).reshape(bh, nc, chunk, p)
+    dtc = dt.to(wdt).reshape(bh, nc, chunk)
+    Bf = B.to(wdt).reshape(bh, nc, chunk, n)
+    Cf = C.to(wdt).reshape(bh, nc, chunk, n)
+    g = gy.to(wdt).reshape(bh, nc, chunk, p)
+    gs = gst.to(wdt)  # (bh, nc, p, n)
+    a = A.to(wdt).reshape(bh, 1, 1)
+    # cs in float64: the gradients of dt and A are differences of sums
+    # (below), and fp32 cs, which falls to ~-200 over a chunk of 256,
+    # moves exp(cs_i − cs_j) by ~1e-5 relative
+    f64 = torch.float64
+    cs = torch.cumsum(dtc.to(f64) * a.to(f64), dim=-1)  # (bh, nc, Q)
+    L = _causal_exp(cs).to(wdt)
+    S = torch.matmul(Cf, Bf.transpose(-1, -2))
+    dW = torch.matmul(g, xf.transpose(-1, -2))
+    Ldt = L * dtc[..., None, :]
+    W = S * Ldt
+    dS = dW * Ldt
+    G = dW * W
+    decay = torch.exp(cs[..., -1:] - cs).to(wdt)  # exp(cs_Q − cs_j) <= 1
+    w = decay * dtc
+    gB = torch.matmul(Bf, gs.transpose(-1, -2))  # (bh, nc, Q, p): gst B_j per row
+    dx = torch.matmul(W.transpose(-1, -2), g) + w[..., None] * gB
+    dC = torch.matmul(dS, Bf)
+    dB = torch.matmul(dS.transpose(-1, -2), Cf) + w[..., None] * torch.matmul(xf, gs)
+    u = (xf * gB).sum(-1)
+    # dcs sums to 0 over a chunk (each G_ij enters its row and its column),
+    # so R and dA are differences of large sums: G's row and column sums, R
+    # and dA are taken in float64, as the kernel takes them
+    Gd, wu = G.to(f64), (w * u).to(f64)
+    dcs = Gd.sum(-1) - Gd.sum(-2) - wu
+    dcs[..., -1] += wu.sum(-1)
+    R = dcs.flip(-1).cumsum(-1).flip(-1)
+    ddt = ((dW * S * L).sum(-2) + decay * u).to(f64) + a.to(f64) * R
+    dA = (dtc.to(f64) * R).sum((-1, -2)).reshape(bh, 1)
+    return (dx.reshape(bh, s, p).to(x.dtype), ddt.reshape(bh, s).to(wdt), dA.to(wdt),
+            dB.reshape(bh, s, n).to(B.dtype), dC.reshape(bh, s, n).to(C.dtype))
+
+
+def _check_inputs(x, dt, A, B, C, chunk) -> tuple[int, int, int, int]:
+    """(bh, s, p, n) of the kernels' operands, or raise."""
     if x.dim() != 3 or B.dim() != 3:
         raise ValueError(f"ssd_intra_chunk takes (bh, s, p) and (bh, s, n) tensors, "
                          f"got {tuple(x.shape)} and {tuple(B.shape)}")
@@ -119,15 +247,20 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     _build.check_tensor("C", C, (bh, s, n), (x.dtype,), dev)
     _build.check_tensor("dt", dt, (bh, s), (torch.float32,), dev)
     _build.check_tensor("A", A, (bh, 1), (torch.float32,), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_intra_chunk runs on a CUDA or CPU tensor, got {dev}")
+    return bh, s, p, n
+
+
+def _intra_chunk_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                     C: torch.Tensor, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward on checked operands: the kernel on a CUDA tensor (counted
+    in ``ssd_intra_chunk.launches``), the plain version on a CPU tensor."""
+    dev = x.device
     if dev.type == "cpu":
         return ssd_intra_chunk_plain(x, dt, A, B, C, chunk)
-    if dev.type != "cuda":
-        raise ValueError(f"ssd_intra_chunk runs on a CUDA or CPU tensor, got {dev}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C)):
-        raise NotImplementedError(
-            "ssd_intra_chunk has no backward kernel yet (ROADMAP.md, Queue 1, item 16: the "
-            "SSD intra-chunk backward): the ssm and hybrid families train on the CPU only; "
-            "on the card their forward runs without gradients (torch.no_grad)")
+    bh, s, p = x.shape
+    n = B.shape[-1]
     if x.dtype == torch.bfloat16:
         check_bf16_domain(x, dt, B, C, chunk)
     elif p > MAX_HEADDIM:
@@ -142,6 +275,87 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                           else "ssd_intra_chunk_fp32_kernel")
     ssd_intra_chunk.launches += 1
     return y, states
+
+
+def ssd_intra_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                        C: torch.Tensor, gy: torch.Tensor, gst: torch.Tensor, chunk: int
+                        ) -> tuple[torch.Tensor, ...]:
+    """The gradient of ``ssd_intra_chunk`` at (x, dt, A, B, C) given gy
+    (bh, s, p) and gst (bh, s / chunk, p, n) in fp32 -> (dx, ddt, dA, dB,
+    dC), dx, dB and dC in x's dtype, ddt (bh, s) and dA (bh, 1) fp32.
+    Launches ``ssd_intra_chunk_bwd_kernel`` (one block per 64-row tile,
+    chunk and head for the row terms, one per column tile for the column
+    terms) and ``ssd_intra_chunk_bwd_finish_kernel`` (the reverse scan of
+    dcs, ddt, and dA summed over the chunks in order) on a CUDA tensor,
+    within ``check_bwd_domain``; runs ``ssd_intra_chunk_bwd_plain`` on a
+    CPU tensor."""
+    bh, s, p, n = _check_inputs(x, dt, A, B, C, chunk)
+    dev = x.device
+    _build.check_tensor("gy", gy, (bh, s, p), (torch.float32,), dev)
+    _build.check_tensor("gst", gst, (bh, s // chunk, p, n), (torch.float32,), dev)
+    if dev.type == "cpu":
+        return ssd_intra_chunk_bwd_plain(x, dt, A, B, C, gy, gst, chunk)
+    check_bwd_domain(bh, s, p, n, chunk)
+    dx = torch.empty_like(x)
+    dB = torch.empty_like(B)
+    dC = torch.empty_like(C)
+    ddt = torch.empty((bh, s), dtype=torch.float32, device=dev)
+    dA = torch.empty((bh, 1), dtype=torch.float32, device=dev)
+    # per row, in fp64: rowsum(G); colsum(G) + w u; w u; ddt's direct and
+    # state terms (the finish kernel's inputs)
+    scratch = torch.empty((4, bh, s), dtype=torch.float64, device=dev)
+    err = _build.library().ssd_intra_chunk_bwd_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), gy.data_ptr(),
+        gst.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), scratch.data_ptr(), bh, s, p, n, chunk, _DTYPES[x.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on_error(err, "ssd_intra_chunk_bwd_kernel")
+    ssd_intra_chunk_bwd.launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+ssd_intra_chunk_bwd.launches = 0
+
+
+class _SsdIntraChunk(torch.autograd.Function):
+    """The intra-chunk term with its gradient: the forward kernel (or its
+    plain version on a CPU tensor) and ``ssd_intra_chunk_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        y, states = _intra_chunk_fwd(x, dt, A, B, C, chunk)
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return y, states
+
+    @staticmethod
+    def backward(ctx, gy, gst):
+        x, dt, A, B, C = ctx.saved_tensors
+        grads = ssd_intra_chunk_bwd(x, dt, A, B, C, gy.float().contiguous(),
+                                    gst.float().contiguous(), ctx.chunk)
+        return (*grads, None)
+
+
+def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor, chunk: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (bh, s, p) and B/C (bh, s, n) in fp32 or bf16 (one dtype), dt (bh, s)
+    and A (bh, 1) fp32, s a multiple of ``chunk`` ->
+    (y_intra (bh, s, p) fp32, states (bh, s / chunk, p, n) fp32).
+    Launches ``ssd_intra_chunk_kernel`` (bf16: one block per chunk and
+    head) or ``ssd_intra_chunk_fp32_kernel`` (fp32: one block per 64-row
+    tile, chunk and head, plus one per chunk and head for the state) on a
+    CUDA tensor; runs ``ssd_intra_chunk_plain`` on a CPU tensor.
+    Differentiable: where autograd records and an input needs a gradient,
+    through ``_SsdIntraChunk`` (on a CUDA tensor the backward's domain,
+    ``check_bwd_domain``, is checked before the forward launches); else the
+    forward alone, as serving calls it."""
+    bh, s, p, n = _check_inputs(x, dt, A, B, C, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C)):
+        if x.is_cuda:
+            check_bwd_domain(bh, s, p, n, chunk)
+        return _SsdIntraChunk.apply(x, dt, A, B, C, chunk)
+    return _intra_chunk_fwd(x, dt, A, B, C, chunk)
 
 
 ssd_intra_chunk.launches = 0

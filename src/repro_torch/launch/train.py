@@ -5,7 +5,10 @@ CPU-scale configs by default (reduced); ``--full`` selects the real config.
 Runs on the CUDA device unless ``--device cpu``.  The reference's
 ``--use-pallas`` has no counterpart: the port's attention always runs
 ``flash_attention_kernel`` on the card (and its backward kernel), and the
-kernels' plain versions on the CPU.  Checkpointed, restartable loop.
+kernels' plain versions on the CPU.  The ssm and hybrid families
+(``--arch mamba2-2.7b``, ``--arch zamba2-2.7b``) train on the card
+through the SSD kernel and its backward kernel.  Checkpointed,
+restartable loop.
 """
 from __future__ import annotations
 

@@ -11,8 +11,9 @@ are distinct though the weights are shared.  The reference's ``lax.scan``
 over stages and layers is a Python loop here.  Training: ``hybrid_loss``,
 each stage (its Mamba layers and the shared block) checkpointed unless
 ``remat`` is "none", as the reference's ``jax.checkpoint`` of a stage.
-On the card the SSD kernel has no backward yet, so the family trains on
-the CPU only (``ssd_scan.ssd_intra_chunk`` refuses a gradient).
+It trains on the card through both kernels' backwards
+(``ssd_intra_chunk_bwd_kernel`` once per Mamba2 layer, the attention
+backward once per stage) and on the CPU through their plain versions.
 """
 from __future__ import annotations
 
@@ -157,7 +158,11 @@ def hybrid_decode_step(params: HybridLM, tokens: torch.Tensor, cache: dict, cfg:
 
 
 def hybrid_train_logits(params: HybridLM, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    """Logits at every position (b, s, vocab_padded)."""
+    """Logits at every position (b, s, vocab_padded), each stage
+    checkpointed unless ``remat`` is "none": on the card a checkpointed
+    stage launches each Mamba2 layer's SSD forward and the shared block's
+    attention forward twice (the forward and its recompute), and each
+    backward kernel once, per step and microbatch."""
     n_stage, period = _stages(cfg)
     x = params["embed"][batch["tokens"]]
     b, seq = x.shape[:2]

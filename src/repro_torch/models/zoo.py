@@ -94,7 +94,9 @@ def _ssm_forward(params: SSMLM, tokens: torch.Tensor, cfg: ArchConfig, collect: 
 def _ssm_train_logits(params: SSMLM, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     """Logits at every position (b, s, vocab_padded), each Mamba2 layer
     checkpointed unless ``remat`` is "none", as the reference's
-    ``jax.checkpoint`` of a layer."""
+    ``jax.checkpoint`` of a layer: on the card a checkpointed layer
+    launches the SSD forward twice (the forward and its recompute) and the
+    SSD backward kernel once per step and microbatch."""
     x = params["embed"][batch["tokens"]]
     run = remat(lambda layer, x: ssm.mamba_block(layer, x, cfg)[0],
                 "none" if cfg.remat == "none" else "full")
