@@ -185,15 +185,21 @@ Phases, in order; any failure raises and exits non-zero:
     lse output against the plain forward's; two calls at qwen3's shape bit
     for bit; the training shapes timed beside their bound, the split's
     7-product floor, SDPA's backward and the CUDA-core design's time; then
-    the SSD backward (``ssd_intra_chunk_bwd``: ``ssd_intra_chunk_bwd_kernel``
-    and its finish, CUDA cores) against ``ssd_intra_chunk_bwd_plain`` (dx,
-    dB, dC within 1e-2 of their largest magnitude in bf16, 1e-5 in fp32;
-    ddt and dA 1e-5) at mamba2-2.7b's and zamba2-2.7b's training shapes
-    (b*h=640, s=1024, p=64, n=128 and 64, chunk 256, dt = softplus of a
-    normal) in bf16 and fp32 and at nine small and edge shapes (p, n 1-128,
-    chunks 16-512, dt = 0 padding rows); two calls at mamba2's shape bit
-    for bit; p = 136 refused before any launch; both training shapes timed
-    beside their bound and the plain version;
+    the bf16 SSD backward's fragment layouts (``ssd_bwd_wgmma_layout_probe``
+    at seven (p, n)), then the SSD backward (``ssd_intra_chunk_bwd``: bf16
+    in its domain on the tensor-core passes ``ssd_bwd_col_bf16_kernel`` and
+    ``ssd_bwd_row_bf16_kernel``, fp32 and bf16 outside it on
+    ``ssd_intra_chunk_bwd_kernel``, then the finish; each case names its
+    kernel) against ``ssd_intra_chunk_bwd_plain`` (dx, dB, dC within 1e-2
+    of their largest magnitude in bf16, 1e-5 in fp32; ddt and dA 1e-5) at
+    mamba2-2.7b's and zamba2-2.7b's training shapes (b*h=640, s=1024, p=64,
+    n=128 and 64, chunk 256, dt = softplus of a normal) in bf16 and fp32,
+    at nine small and edge shapes (p, n 1-128, chunks 16-512, dt = 0
+    padding rows) and at seven edges of the bf16 domain (chunks 64-512, p
+    and n 16-128); two calls at mamba2's shape bit for bit; p = 136 refused
+    before any launch; both training shapes timed beside their bound, the
+    plain version and the CUDA-core design's time, and the CUDA-core
+    kernel at mamba2's shape in fp32;
 31. the main training path: ``Trainer`` on qwen3-32b at full width, depth 2,
     bf16, remat "full", 2 microbatches, AdamW (lr 1e-3, 8 steps, warmup 1),
     ``SyntheticLM`` at seq 1024 and global batch 8, 8 steps: per-step loss,
@@ -217,11 +223,14 @@ Phases, in order; any failure raises and exits non-zero:
     ``SyntheticLM`` at seq 1024, global batch 8, 6 steps): per-step loss,
     grad norm, lr and time, the median step, tokens/s, peak memory against
     the reckoning, 128 SSD forward and 64 backward launches a step, a
-    profile of one more step with the SSD backward's share; then step 0
+    profile of one more step with the SSD backward's share, each of its
+    passes apart; then step 0
     again with ``ssd_intra_chunk_bwd_plain`` on the card in the kernel's
     place: equal losses, grad norms within ``STEP0_GAP_TOL`` (1e-3; 3e-3
     for zamba2, whose step moves 7e-4 to 1.2e-3 with fp32-rounding-sized
-    noise on the SSD backward's outputs);
+    noise on the SSD backward's outputs); then mamba2-2.7b at depth 2, 4
+    steps with a checkpoint every 2, restarted after a crash at step 2 bit
+    for bit against the uninterrupted run;
 35. the same for zamba2-2.7b at full width and depth (54 Mamba2 layers,
     the shared attention block at 9 stages, per-stage checkpointing): 108
     SSD forward and 54 backward, 18 attention forward and 9 backward
@@ -268,7 +277,12 @@ KERNELS = ("bfs_sweep_kernel", "minplus_patch_kernel", "flash_attention_kernel",
            "ssd_intra_chunk_kernel", "flash_attention_bwd_dot_kernel",
            "flash_attention_bwd_dkdv_bf16_kernel", "flash_attention_bwd_dq_bf16_kernel",
            "flash_attention_bwd_dkdv_kernel", "flash_attention_bwd_dq_kernel",
-           "ssd_intra_chunk_bwd_kernel", "ssd_intra_chunk_bwd_finish_kernel")
+           "ssd_intra_chunk_bwd_kernel", "ssd_intra_chunk_bwd_finish_kernel",
+           "ssd_bwd_col_bf16_kernel", "ssd_bwd_row_bf16_kernel")
+# the SSD backward's launches on the bf16 training paths: the two passes
+# and the finish
+SSD_BWD_BF16_KERNELS = ("ssd_bwd_col_bf16_kernel", "ssd_bwd_row_bf16_kernel",
+                        "ssd_intra_chunk_bwd_finish_kernel")
 # the attention backward's kernels on the bf16 training paths
 BWD_BF16_KERNELS = ("flash_attention_bwd_dot_kernel", "flash_attention_bwd_dkdv_bf16_kernel",
                     "flash_attention_bwd_dq_bf16_kernel")
@@ -2967,16 +2981,76 @@ def flash_bwd_timed(rnd, b: int, h: int, kv: int, sq: int, skv: int, hd: int,
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
 
 
-def phase_ssd_bwd() -> dict:
-    """The SSD backward (``ssd_intra_chunk_bwd``: ``ssd_intra_chunk_bwd_kernel``
-    and its finish, CUDA cores) against ``ssd_intra_chunk_bwd_plain`` on the
-    same inputs: mamba2-2.7b's and zamba2-2.7b's training shapes in bf16 and
-    fp32 (dt = softplus of a normal, so cs falls to about -200 over a chunk
-    of 256, where the reference's fp32 gradient overflows), then small and
-    edge shapes (p, n from 1 to 128, ragged 64-row tiles, chunks of 16 to
-    512, dt = 0 padding rows); two calls at mamba2's shape bit for bit; a
-    shape outside the domain refused before any launch; both training
-    shapes timed beside their bound.  Part of phase 30."""
+# the bf16 SSD backward's ms before its tensor-core redesign (the CUDA-core
+# design's two launches), by TRAIN_SSD label, and the training steps' ms
+# with it: quoted from PERF.md section 6, row 4b (NVIDIA H100 80GB HBM3,
+# 700.00 W), for the log only; no run of this script measures them
+SSD_BWD_MS_BEFORE = {"mamba2-2.7b": 10.0071, "zamba2-2.7b": 4.7822}
+SSM_STEP_MS_BEFORE = {"mamba2-2.7b": 2664.1, "zamba2-2.7b": 1929.5}
+
+
+def _ssd_bwd_probe(rnd) -> None:
+    """The bf16 SSD backward's fragment layouts (``ssd_bwd_wgmma_layout_probe``)
+    at (p, n) of every padded width, against the same split arithmetic in
+    PyTorch: the column pass's S^T = B C^T and dW^T = X gy^T (gy split in
+    shared memory into three terms), W^T gy and dS^T C from register A
+    operands (two terms) and MN-major gy and C, B gst^T (three terms), X gst
+    (two), u, and the row pass's dW = gy X^T (two terms).  The products are
+    exact, so only the order of the fp32 sums differs (1e-5 of the largest
+    value); a misplaced register or a wrong swizzle is off by the values."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as ssd
+
+    def split(v, terms):
+        parts = []
+        for _ in range(terms):
+            parts.append(v.bfloat16().float())
+            v = v - parts[-1]
+        return parts
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the references in full fp32
+    b16 = torch.bfloat16
+    for p, n in ((64, 128), (64, 64), (16, 16), (48, 80), (128, 128), (32, 112), (128, 16)):
+        B, C = (rnd(64, n).to(b16) for _ in range(2))
+        X = rnd(64, p).to(b16)
+        gy, gst, Wt, Dt = rnd(64, p), rnd(p, n), rnd(64, 64), rnd(64, 64)
+        got = ssd.ssd_bwd_wgmma_layout_probe(B, C, X, gy, gst, Wt, Dt)
+        Bf, Cf, Xf = B.float(), C.float(), X.float()
+        g3, s3 = split(gy, 3), split(gst, 3)
+        (wh, wl), (dh, dl) = split(Wt, 2), split(Dt, 2)
+        gb = sum(Bf @ t.T for t in s3)
+        want = {"s": Bf @ Cf.T, "dw": sum(Xf @ t.T for t in g3),
+                "dx": wh @ g3[0] + wh @ g3[1] + wl @ g3[0], "db": dh @ Cf + dl @ Cf, "gb": gb,
+                "xg": Xf @ s3[0] + Xf @ s3[1], "u": (Xf * gb).sum(-1),
+                "dwr": g3[0] @ Xf.T + g3[1] @ Xf.T}
+        torch.cuda.synchronize()
+        err = {k: float((got[k] - w).abs().max() / w.abs().max()) for k, w in want.items()}
+        check(all(e <= 1e-5 for e in err.values()),
+              f"the SSD backward's wgmma fragment layout is wrong at p={p}, n={n}: relative "
+              f"errors {err} (tol 1e-5)")
+        log(f"[30] ssd backward wgmma fragment layout p={p} n={n}: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in err.items()) + " (tol 1e-5)")
+
+
+def phase_ssd_bwd() -> list[dict]:
+    """The SSD backward (``ssd_intra_chunk_bwd``), after a check of the
+    fragment layouts the bf16 passes rest on (``_ssd_bwd_probe``), against
+    ``ssd_intra_chunk_bwd_plain`` on the same inputs: mamba2-2.7b's and
+    zamba2-2.7b's training shapes in bf16 (the tensor-core passes,
+    ``ssd_bwd_col_bf16_kernel`` and ``ssd_bwd_row_bf16_kernel``) and fp32
+    (``ssd_intra_chunk_bwd_kernel``, CUDA cores) (dt = softplus of a normal,
+    so cs falls to about -200 over a chunk of 256, where the reference's
+    fp32 gradient overflows), then small and edge shapes: in the bf16
+    domain chunks of 64 to 512 (an odd count of 64-row tiles at 192), p
+    and n at 16, 48, 80 and 128, dt = 0 padding rows; outside it (p 8,
+    chunk 80) and in fp32 on the CUDA cores (p, n from 1 to 128, ragged
+    64-row tiles, chunks of 16 to 512); each case's log names the kernel
+    that took it, chosen by dtype and shape (``bwd_kernel``).  Two calls at
+    mamba2's shape bit for bit; a shape outside both domains refused before
+    any launch; both training shapes timed beside their bound, and the
+    CUDA-core kernel at mamba2's shape in fp32.  Part of phase 30.  Returns the kernels
+    line's rows: the bf16 passes, then the CUDA-core kernel."""
     import torch
 
     from repro_torch.kernels import ssd_scan as ssd
@@ -2996,6 +3070,10 @@ def phase_ssd_bwd() -> dict:
                 t[:, s - pad:] = 0
         return x, dt, A, B, C, rnd(bh, s, p), rnd(bh, s // chunk, p, n)
 
+    def in_bf16_domain(p, n, chunk, dtype):
+        return dtype == b16 and chunk % 64 == 0 and p % 16 == 0 and n % 16 == 0
+
+    _ssd_bwd_probe(rnd)
     # relative to each gradient's largest magnitude: both sides sum in fp32
     # in other orders (cs, the sums of G, R and dA in fp64 on both), 1e-5;
     # dx, dB and dC in bf16 are rounded once from fp32 sums that differ in
@@ -3009,26 +3087,42 @@ def phase_ssd_bwd() -> dict:
               (2, 256, 128, 128, 256, f32, 0), (2, 64, 1, 1, 64, f32, 0),
               (2, 1024, 64, 128, 512, b16, 0), (4, 160, 16, 16, 80, b16, 0),
               (2, 128, 100, 72, 128, f32, 3)]
-    errs = []
+    # the bf16 domain's edges: chunk 64 and 512, an odd tile count (192), p
+    # and n at 16, 48, 80, 128, padding rows
+    cases += [(4, 128, 16, 16, 64, b16, 0), (2, 512, 48, 80, 256, b16, 7),
+              (2, 384, 80, 48, 128, b16, 0), (3, 1024, 128, 128, 512, b16, 3),
+              (2, 192, 32, 112, 64, b16, 0), (2, 576, 64, 128, 192, b16, 5),
+              (2, 512, 128, 16, 256, b16, 0)]
+    errs = {"ssd_bwd_col_bf16_kernel": [], "ssd_intra_chunk_bwd_kernel": []}
     launches = ssd.ssd_intra_chunk_bwd.launches
+    bf16_launches = ssd.ssd_intra_chunk_bwd.bf16_launches
     for bh, s, p, n, chunk, dtype, pad in cases:
         args = inputs(bh, s, p, n, chunk, dtype, pad)
+        x, dt, _, B, C, gy, gst = args
+        kernel = ssd.bwd_kernel(x, dt, B, C, gy, gst, chunk)
+        bf16 = in_bf16_domain(p, n, chunk, dtype)
+        label = (f"bh={bh} s={s} p={p} n={n} chunk={chunk} {str(dtype)[6:]}"
+                 + (f", {pad} padding rows" if pad else ""))
+        check(kernel == ("ssd_bwd_col_bf16_kernel" if bf16 else "ssd_intra_chunk_bwd_kernel"),
+              f"the SSD backward at {label} would take {kernel}")
+        n_bf16 = ssd.ssd_intra_chunk_bwd.bf16_launches
         got = ssd.ssd_intra_chunk_bwd(*args, chunk)
         want = ssd.ssd_intra_chunk_bwd_plain(*args, chunk)
         torch.cuda.synchronize()
+        check(ssd.ssd_intra_chunk_bwd.bf16_launches == n_bf16 + bf16,
+              f"the SSD backward at {label} did not launch {kernel}")
         e = [float((g.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30))
              for g, w in zip(got, want)]
         t = [tol[dtype, name in ("dx", "dB", "dC")] for name in names]
-        label = (f"bh={bh} s={s} p={p} n={n} chunk={chunk} {str(dtype)[6:]}"
-                 + (f", {pad} padding rows" if pad else ""))
         check(all(np.isfinite(e)) and all(a <= b for a, b in zip(e, t))
               and all(bool(torch.isfinite(g).all()) for g in got),
-              f"ssd_intra_chunk_bwd_kernel != plain at {label}: relative errors "
+              f"{kernel} != plain at {label}: relative errors "
               f"{dict(zip(names, e))} (tol {dict(zip(names, t))})")
         check(tuple(g.dtype for g in got) == (dtype, f32, f32, dtype, dtype),
               f"the SSD backward's dtypes at {label}: {[g.dtype for g in got]}")
-        errs.append(max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)))
-        log(f"[30] ssd backward {label}: max error relative to the largest magnitude "
+        errs[kernel].append(max(float((g.float() - w.float()).abs().max())
+                                for g, w in zip(got, want)))
+        log(f"[30] ssd backward {label} ({kernel}): max error relative to the largest magnitude "
             + ", ".join(f"{k} {v:.3g}" for k, v in zip(names, e))
             + f" (tol {t[0]:g} dx/dB/dC, {t[1]:g} ddt/dA)")
         del args, got, want
@@ -3040,14 +3134,16 @@ def phase_ssd_bwd() -> dict:
     torch.cuda.synchronize()
     same = [bool(torch.equal(a, c)) for a, c in zip(first, second)]
     check(all(same), f"two SSD backward calls at mamba2's shape differ: {dict(zip(names, same))}")
-    log("[30] ssd backward at mamba2-2.7b's training shape, two calls: dx, ddt, dA, dB, dC bit "
-        "for bit equal")
+    log("[30] ssd backward at mamba2-2.7b's training shape (ssd_bwd_col_bf16_kernel), two calls: "
+        "dx, ddt, dA, dB, dC bit for bit equal")
     del args, first, second
-    check(ssd.ssd_intra_chunk_bwd.launches == launches + len(cases) + 2,
+    n_bf16 = sum(in_bf16_domain(p, n, chunk, dtype) for _, _, p, n, chunk, dtype, _ in cases)
+    check(ssd.ssd_intra_chunk_bwd.launches == launches + len(cases) + 2
+          and ssd.ssd_intra_chunk_bwd.bf16_launches == bf16_launches + n_bf16 + 2,
           "the SSD backward wrapper did not count its launches")
-    # a width outside the domain is refused before any launch (no other
-    # kernel takes it), and the forward on such an input that needs a
-    # gradient is refused before its own launch
+    # a width outside both domains is refused before any launch (no kernel
+    # takes it), and the forward on such an input that needs a gradient is
+    # refused before its own launch
     x, dt, A, B, C, gy, gst = inputs(2, 64, 136, 16, 64, f32)
     n0 = ssd.ssd_intra_chunk.launches
     for call in (lambda: ssd.ssd_intra_chunk_bwd(x, dt, A, B, C, gy, gst, 64),
@@ -3062,26 +3158,38 @@ def phase_ssd_bwd() -> dict:
           and ssd.ssd_intra_chunk.launches == n0, "a refused SSD call launched")
     log(f"    p = 136 refused before any launch: {refused}")
     ssd.ssd_intra_chunk_bwd.launches = launches  # comparisons do not count
-    rows = [ssd_bwd_timed(inputs(bh, s, p, n, chunk, b16), chunk, label)
+    ssd.ssd_intra_chunk_bwd.bf16_launches = bf16_launches
+    rows = [ssd_bwd_timed(inputs(bh, s, p, n, chunk, b16), chunk, label,
+                          before=SSD_BWD_MS_BEFORE.get(label))
             for label, bh, s, p, n, chunk in TRAIN_SSD]
-    return {"name": "ssd_intra_chunk_bwd_kernel", "route": "cuda", "source": SSD_BWD_SOURCE,
-            "replaces": "none: the JAX package differentiates its jnp ssd_chunked_ref "
-                        "(src/repro/models/ssm.py:83), since jax.grad cannot pass through "
-                        "pallas_call (src/repro/kernels/ssd_scan.py:75); backward of "
-                        "src/repro/kernels/ssd_scan.py:32",
-            "max_abs_err": max(errs), **rows[0], "library_ms": None,
-            "zamba2_ms": rows[1]["ms"]}
+    label, bh, s, p, n, chunk = TRAIN_SSD[0]
+    core = ssd_bwd_timed(inputs(bh, s, p, n, chunk, f32), chunk, label)
+    replaces = ("none: the JAX package differentiates its jnp ssd_chunked_ref "
+                "(src/repro/models/ssm.py:83), since jax.grad cannot pass through "
+                "pallas_call (src/repro/kernels/ssd_scan.py:75); backward of "
+                "src/repro/kernels/ssd_scan.py:32")
+    return [{"name": "ssd_intra_chunk_bwd_bf16_kernel", "route": "cuda", "source": SSD_BWD_SOURCE,
+             "launches_of": list(SSD_BWD_BF16_KERNELS), "replaces": replaces,
+             "max_abs_err": max(errs["ssd_bwd_col_bf16_kernel"]), **rows[0], "library_ms": None,
+             "zamba2_ms": rows[1]["ms"], "zamba2_bound_ms": rows[1]["bound_ms"]},
+            {"name": "ssd_intra_chunk_bwd_kernel", "route": "cuda", "source": SSD_BWD_SOURCE,
+             "replaces": replaces, "max_abs_err": max(errs["ssd_intra_chunk_bwd_kernel"]),
+             **core, "library_ms": None}]
 
 
-def ssd_bwd_timed(args, chunk: int, label: str) -> dict:
-    """The SSD backward (one call: the kernel and its finish) and its plain
-    version at one training shape; the bound from the bytes (x, B, C, dt,
-    gy, gst and A read once; dx, dB, dC, ddt and dA written once) and the
-    products on the causal triangles counted once (S, dW, dx, dC, dB, and
-    the state terms), at the bf16 tensor-core rate with each product that
-    has an fp32 operand counted twice (split into two bf16 terms, as the
-    forward's bound counts them); the same products at the fp32 CUDA-core
-    peak, this design's own floor, logged."""
+def ssd_bwd_timed(args, chunk: int, label: str, before: float | None = None) -> dict:
+    """The SSD backward (one call: the kernels ``bwd_kernel`` picks and the
+    finish) and its plain version at one training shape; the bound from the
+    bytes (x, B, C, dt, gy, gst and A read once; dx, dB, dC, ddt and dA
+    written once) and the products on the causal triangles counted once
+    (S, dW, dx, dC, dB, and the state terms): for bf16 x, B, C at the bf16
+    tensor-core rate with each product that has an fp32 operand counted
+    twice (split into two bf16 terms, as the forward's bound counts them),
+    for fp32 at the fp32 CUDA-core peak; the same products at the fp32
+    CUDA-core peak logged; ``before``, the CUDA-core design's ms at this
+    shape as PERF.md quotes it (or None), logged beside.  (The bf16 passes
+    are timed apart in phases 34-35's profiled steps: a profile of a few
+    calls here recorded no device event on the card.)"""
     import torch
 
     from repro_torch.kernels import ssd_scan as ssd
@@ -3090,9 +3198,10 @@ def ssd_bwd_timed(args, chunk: int, label: str) -> dict:
     bh, s, p = x.shape
     n = B.shape[-1]
     nc = s // chunk
-    n0 = ssd.ssd_intra_chunk_bwd.launches
+    kernel = ssd.bwd_kernel(x, dt, B, C, gy, gst, chunk)
+    n0, b0 = ssd.ssd_intra_chunk_bwd.launches, ssd.ssd_intra_chunk_bwd.bf16_launches
     ms = cuda_ms(lambda: ssd.ssd_intra_chunk_bwd(*args, chunk), reps=5, n=5)
-    ssd.ssd_intra_chunk_bwd.launches = n0
+    ssd.ssd_intra_chunk_bwd.launches, ssd.ssd_intra_chunk_bwd.bf16_launches = n0, b0
     plain_ms = cuda_ms(lambda: ssd.ssd_intra_chunk_bwd_plain(*args, chunk), reps=3, n=1)
     pairs = chunk * (chunk + 1) // 2  # causal (i, j) pairs of a chunk
     s_flops = bh * nc * 2 * pairs * n  # C B^T, bf16 operands
@@ -3100,14 +3209,22 @@ def ssd_bwd_timed(args, chunk: int, label: str) -> dict:
     es = x.element_size()
     nbytes = (2 * bh * s * (p + 2 * n) * es  # x, B, C read; dx, dB, dC written
               + 2 * bh * s * 4 + bh * s * p * 4 + bh * nc * p * n * 4 + 2 * bh * 4)
-    bms, by, terms = bound(nbytes, [(s_flops + 2 * other, BF16_FLOP_PER_S)])
+    if x.dtype == torch.bfloat16:
+        bms, by, terms = bound(nbytes, [(s_flops + 2 * other, BF16_FLOP_PER_S)])
+    else:
+        bms, by, terms = bound(nbytes, [(s_flops + other, FP32_FLOP_PER_S)])
     floor_ms = (s_flops + other) / FP32_FLOP_PER_S * 1e3
-    log(f"    training shape {label} (bh={bh} s={s} p={p} n={n} chunk={chunk}, bf16 x/B/C; "
-        f"{ssd.bwd_smem_bytes(chunk, p, n)} B of shared memory a block): backward {ms:.4f} ms "
-        f"({(s_flops + other) / ms / 1e9:.1f} TFLOP/s of {(s_flops + other) / 1e9:.2f} GFLOP), "
-        f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({terms}; {nbytes / 1e6:.1f} MB at "
-        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), the products at the fp32 CUDA-core peak "
-        f"{floor_ms:.4f} ms ({FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s)")
+    smem = (" and ".join(map(str, ssd.bf16_bwd_smem_bytes(chunk, p, n))) + " B (the passes)"
+            if kernel == "ssd_bwd_col_bf16_kernel" else f"{ssd.bwd_smem_bytes(chunk, p, n)} B")
+    log(f"    training shape {label} (bh={bh} s={s} p={p} n={n} chunk={chunk}, "
+        f"{str(x.dtype)[6:]} x/B/C; {kernel}, {smem} of shared memory a block): backward "
+        f"{ms:.4f} ms ({(s_flops + other) / ms / 1e9:.1f} TFLOP/s of "
+        f"{(s_flops + other) / 1e9:.2f} GFLOP), plain {plain_ms:.3f} ms, bound {bms:.4f} ms "
+        f"({terms}; {nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {bms / ms:.1%} of "
+        f"it reached), the products at the fp32 CUDA-core peak {floor_ms:.4f} ms "
+        f"({FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s)"
+        + ("" if before is None else f"; the CUDA-core design, {before} ms here in PERF.md "
+           f"(not measured in this run), took {before / ms:.1f}x as long"))
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
 
 
@@ -3115,10 +3232,12 @@ def _train_counts() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
 
+    bwd = ssd.ssd_intra_chunk_bwd
     return {"flash_attention_kernel": fa.flash_attention_fwd.launches,
             "flash_attention_bwd_kernel": fa.flash_attention_bwd.launches,
             "ssd_intra_chunk_kernel": ssd.ssd_intra_chunk.launches,
-            "ssd_intra_chunk_bwd_kernel": ssd.ssd_intra_chunk_bwd.launches}
+            "ssd_intra_chunk_bwd_kernel": bwd.launches - bwd.bf16_launches,
+            "ssd_intra_chunk_bwd_bf16_kernel": bwd.bf16_launches}
 
 
 def _reset_train_counts() -> None:
@@ -3127,6 +3246,7 @@ def _reset_train_counts() -> None:
 
     _reset_model_counts()
     fa.flash_attention_bwd.launches = ssd.ssd_intra_chunk_bwd.launches = 0
+    ssd.ssd_intra_chunk_bwd.bf16_launches = 0
 
 
 def _trainer(cfg, steps: int, seq: int, batch: int, ckpt_dir=None, ckpt_every: int = 100,
@@ -3208,7 +3328,8 @@ def phase_train_qwen3(steps: int = 8, seq: int = 1024, batch: int = 8) -> dict:
           "a loss or grad norm is not finite")
     fwd, bwd = _attn_calls_per_step(cfg)
     want = {"flash_attention_kernel": steps * fwd, "flash_attention_bwd_kernel": steps * bwd,
-            "ssd_intra_chunk_kernel": 0, "ssd_intra_chunk_bwd_kernel": 0}
+            "ssd_intra_chunk_kernel": 0, "ssd_intra_chunk_bwd_kernel": 0,
+            "ssd_intra_chunk_bwd_bf16_kernel": 0}
     check(launches == want, f"training launches {launches}, expected {want}")
     med = float(np.median([h["time_s"] for h in hist[1:]]))
     tokens = batch * seq
@@ -3258,10 +3379,6 @@ def phase_train_whisper(steps: int = 8, seq: int = 448, batch: int = 8, every: i
     import shutil
     import tempfile
 
-    import torch
-
-    from repro_torch.checkpoint import ckpt
-
     free_device()
     cfg = _model_cfg("whisper-tiny")
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -3275,7 +3392,8 @@ def phase_train_whisper(steps: int = 8, seq: int = 448, batch: int = 8, every: i
         launches = _train_counts()
         fwd, bwd = _attn_calls_per_step(cfg)
         want = {"flash_attention_kernel": steps * fwd, "flash_attention_bwd_kernel": steps * bwd,
-                "ssd_intra_chunk_kernel": 0, "ssd_intra_chunk_bwd_kernel": 0}
+                "ssd_intra_chunk_kernel": 0, "ssd_intra_chunk_bwd_kernel": 0,
+                "ssd_intra_chunk_bwd_bf16_kernel": 0}
         check(launches == want, f"whisper training launches {launches}, expected {want}")
         check(all(np.isfinite(h["loss"]) for h in hist_a), "a whisper loss is not finite")
         med = float(np.median([h["time_s"] for h in hist_a[1:]]))
@@ -3289,50 +3407,66 @@ def phase_train_whisper(steps: int = 8, seq: int = 448, batch: int = 8, every: i
         check((len(names), digest) == WHISPER_CKPT_NAMES,
               f"checkpoint leaf names ({len(names)}, {digest}) differ from the JAX package's "
               f"{WHISPER_CKPT_NAMES}")
-
-        class Crash(RuntimeError):
-            pass
-
-        def hook(step):
-            if step == every:
-                raise Crash(step)
-
-        b = _trainer(cfg, steps, seq, batch, ckpt_dir=os.path.join(root, "b"), ckpt_every=every)
-        b.init(0)
-        b.failure_hook = hook
-        try:
-            b.train(steps, log_every=0)
-        except Crash:
-            pass
-        check(ckpt.latest_step(os.path.join(root, "b")) == every,
-              "the crashed run left no checkpoint at its last save")
-        c = _trainer(cfg, steps, seq, batch, ckpt_dir=os.path.join(root, "b"), ckpt_every=every)
-        check(c.restore() and c.state["step"] == every and c.data.step == every,
-              "the fresh Trainer did not restore the step, weights and data stream")
-        hist_c = c.train(steps - every, log_every=0)
-        la = [h["loss"] for h in hist_a[every:]]
-        lc = [h["loss"] for h in hist_c]
-        pa = a.state["params"].state_dict()
-        pc = c.state["params"].state_dict()
-        differ = [k for k in pa if not torch.equal(pa[k], pc[k])]
-        if la == lc and not differ:
-            log(f"    restart from step {every}: losses {lc} and all {len(pa)} weight tensors "
-                f"equal the uninterrupted run's bit for bit; checkpoint leaves {len(names)}, "
-                f"names equal to the JAX package's")
-        else:
-            # the rule when an op on the path is not deterministic on the card
-            worst = max((_rel_fro(pc[k], pa[k]) for k in differ), default=0.0)
-            dl = max(abs(x - y) / abs(x) for x, y in zip(la, lc))
-            log(f"    restart from step {every}: NOT bit for bit: losses {la} vs {lc} (relative "
-                f"{dl:.3g}), {len(differ)} weight tensors differ (worst relative Frobenius "
-                f"{worst:.3g}): {differ[:6]}")
-            check(dl <= 1e-4 and worst <= 1e-3,
-                  "the restarted run is beyond the tolerance (losses 1e-4, weights 1e-3)")
-        del a, b, c, pa, pc
+        _restart_matches(cfg, a, hist_a, steps, seq, batch, every, os.path.join(root, "b"),
+                         note=f"; checkpoint leaves {len(names)}, names equal to the JAX "
+                              f"package's")
+        del a
         _whisper_bwd_plain_gap(cfg, steps, seq, batch)
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def _restart_matches(cfg, a, hist_a, steps: int, seq: int, batch: int, every: int, ckpt_dir: str,
+                     note: str = "") -> None:
+    """A second run of ``cfg`` that crashes (the failure hook) at step
+    ``every`` after its checkpoint there (in ``ckpt_dir``), and a fresh
+    ``Trainer`` that restores it and trains to ``steps``: its losses and
+    final weights against the uninterrupted run ``a``'s (``hist_a``), bit
+    for bit (the path's kernels and ops are deterministic; a difference is
+    reported by tensor and held to a stated tolerance)."""
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+
+    class Crash(RuntimeError):
+        pass
+
+    def hook(step):
+        if step == every:
+            raise Crash(step)
+
+    b = _trainer(cfg, steps, seq, batch, ckpt_dir=ckpt_dir, ckpt_every=every)
+    b.init(0)
+    b.failure_hook = hook
+    try:
+        b.train(steps, log_every=0)
+    except Crash:
+        pass
+    check(ckpt.latest_step(ckpt_dir) == every,
+          "the crashed run left no checkpoint at its last save")
+    del b
+    c = _trainer(cfg, steps, seq, batch, ckpt_dir=ckpt_dir, ckpt_every=every)
+    check(c.restore() and c.state["step"] == every and c.data.step == every,
+          "the fresh Trainer did not restore the step, weights and data stream")
+    hist_c = c.train(steps - every, log_every=0)
+    la = [h["loss"] for h in hist_a[every:]]
+    lc = [h["loss"] for h in hist_c]
+    pa = a.state["params"].state_dict()
+    pc = c.state["params"].state_dict()
+    differ = [k for k in pa if not torch.equal(pa[k], pc[k])]
+    if la == lc and not differ:
+        log(f"    restart from step {every}: losses {lc} and all {len(pa)} weight tensors "
+            f"equal the uninterrupted run's bit for bit{note}")
+    else:
+        # the rule when an op on the path is not deterministic on the card
+        worst = max((_rel_fro(pc[k], pa[k]) for k in differ), default=0.0)
+        dl = max(abs(x - y) / abs(x) for x, y in zip(la, lc))
+        log(f"    restart from step {every}: NOT bit for bit: losses {la} vs {lc} (relative "
+            f"{dl:.3g}), {len(differ)} weight tensors differ (worst relative Frobenius "
+            f"{worst:.3g}): {differ[:6]}")
+        check(dl <= 1e-4 and worst <= 1e-3,
+              "the restarted run is beyond the tolerance (losses 1e-4, weights 1e-3)")
 
 
 def _recording(tr) -> list:
@@ -3501,7 +3635,8 @@ def phase_train_card_vs_cpu(runs=CARD_VS_CPU_DENSE, phase: int = 33) -> dict:
         sfwd, sbwd = _ssd_calls_per_step(cfg)
         counts = r["launches"]
         want = {"flash_attention_kernel": fwd, "flash_attention_bwd_kernel": bwd,
-                "ssd_intra_chunk_kernel": sfwd, "ssd_intra_chunk_bwd_kernel": sbwd}
+                "ssd_intra_chunk_kernel": sfwd, "ssd_intra_chunk_bwd_kernel": sbwd,
+                "ssd_intra_chunk_bwd_bf16_kernel": 0}
         check(counts == want, f"{arch}: launches {counts}, expected {want}")
         launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
         d_loss = abs(hc["loss"] - hp["loss"]) / abs(hp["loss"])
@@ -3571,7 +3706,8 @@ def phase_train_ssm(arch: str, phase: int, steps: int = 6, seq: int = 1024, batc
     fwd, bwd = _attn_calls_per_step(cfg)
     sfwd, sbwd = _ssd_calls_per_step(cfg)
     want = {"flash_attention_kernel": steps * fwd, "flash_attention_bwd_kernel": steps * bwd,
-            "ssd_intra_chunk_kernel": steps * sfwd, "ssd_intra_chunk_bwd_kernel": steps * sbwd}
+            "ssd_intra_chunk_kernel": steps * sfwd, "ssd_intra_chunk_bwd_kernel": 0,
+            "ssd_intra_chunk_bwd_bf16_kernel": steps * sbwd}
     check(launches == want, f"{arch} training launches {launches}, expected {want}")
     med = float(np.median([h["time_s"] for h in hist[1:]]))
     vp = tr.state["params"]["head"].shape[-1]  # the padded vocabulary
@@ -3584,24 +3720,61 @@ def phase_train_ssm(arch: str, phase: int, steps: int = 6, seq: int = 1024, batc
         f"(reckoned {reckoned / 2**30:.2f} GiB: 16 bytes x {n / 1e9:.3f} B parameters + 4 fp32 "
         f"copies of a microbatch's logits ({mb_tokens} x {vp}) + {saved} checkpointed bf16 "
         f"inputs); launches {launches}, per step SSD forward {sfwd}, backward {sbwd}, "
-        f"attention forward {fwd}, backward {bwd}")
+        f"attention forward {fwd}, backward {bwd}; with the CUDA-core SSD backward "
+        f"{SSM_STEP_MS_BEFORE[arch]} ms a step in PERF.md (not measured in this run), "
+        f"{SSM_STEP_MS_BEFORE[arch] - med * 1e3:.1f} ms more")
     check(peak <= reckoned + 8 * 2**30,
           f"peak device memory {peak / 2**30:.2f} GiB exceeds the reckoning "
           f"{reckoned / 2**30:.2f} GiB by more than 8 GiB")
     _, wall, kms = profile_run(lambda: tr.train(1, log_every=0), f"one {arch} train step",
                                top=12, spans=(SPAN_GRADS, SPAN_OPTIMIZER))
-    ssd_bwd = kms["ssd_intra_chunk_bwd_kernel"] + kms["ssd_intra_chunk_bwd_finish_kernel"]
+    ssd_bwd = sum(kms[name] for name in SSD_BWD_BF16_KERNELS)
     attn_bwd = sum(kms[name] for name in BWD_BF16_KERNELS)
     log(f"    the SSD backward in the profiled step: {ssd_bwd:.2f} ms of {wall * 1e3:.1f} ms "
-        f"({100 * ssd_bwd / (wall * 1e3):.1f}%; ssd_intra_chunk_bwd_kernel "
-        f"{kms['ssd_intra_chunk_bwd_kernel']:.2f} ms, its finish "
-        f"{kms['ssd_intra_chunk_bwd_finish_kernel']:.2f} ms over {sbwd} calls); the SSD "
+        f"({100 * ssd_bwd / (wall * 1e3):.1f}%; "
+        + ", ".join(f"{name} {kms[name]:.2f} ms ({kms[name] / sbwd:.4f} a call)"
+                    for name in SSD_BWD_BF16_KERNELS)
+        + f" over {sbwd} calls); the SSD "
         f"forward {kms['ssd_intra_chunk_kernel']:.2f} ms over {sfwd}"
         + (f"; the attention backward {attn_bwd:.2f} ms, forward "
            f"{kms['flash_attention_kernel']:.2f} ms" if fwd else ""))
     del tr
     _ssd_bwd_plain_gap(cfg, steps, seq, batch, STEP0_GAP_TOL[arch])
     return launches
+
+
+def phase_ssm_restart(arch: str = "mamba2-2.7b", depth: int = 2, steps: int = 4, every: int = 2,
+                      seq: int = 1024, batch: int = 8) -> None:
+    """``arch`` at full width and depth ``depth``, bf16, through both SSD
+    kernels: ``steps`` steps with a checkpoint every ``every``, then a run
+    that crashes at step ``every`` and a fresh ``Trainer`` that restores its
+    checkpoint and trains on, bit for bit against the uninterrupted run
+    (``_restart_matches``): the tensor-core SSD backward's determinism end to
+    end.  Part of phase 34."""
+    import shutil
+    import tempfile
+
+    free_device()
+    cfg = _model_cfg(arch, depth)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        _reset_train_counts()
+        a = _trainer(cfg, steps, seq, batch, ckpt_dir=os.path.join(root, "a"), ckpt_every=every)
+        a.init(0)
+        hist_a = a.train(steps, log_every=0)
+        launches = _train_counts()
+        _, sbwd = _ssd_calls_per_step(cfg)
+        check(launches["ssd_intra_chunk_bwd_bf16_kernel"] == steps * sbwd
+              and launches["ssd_intra_chunk_bwd_kernel"] == 0,
+              f"{arch} at depth {depth}: launches {launches}")
+        check(all(np.isfinite(h["loss"]) for h in hist_a), f"an {arch} loss is not finite")
+        log(f"[34] {arch} at full width, depth {depth}, bf16, global batch {batch} x {seq} "
+            f"tokens, {steps} steps with a checkpoint every {every}: losses "
+            f"{[round(h['loss'], 4) for h in hist_a]}; launches {launches}")
+        _restart_matches(cfg, a, hist_a, steps, seq, batch, every, os.path.join(root, "b"))
+        del a
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # the step-0 check's tolerance on the grad norms, by config: how far the
@@ -3726,13 +3899,14 @@ def main() -> int:
     elapsed("29")
     # training: the attention backward kernel (phase 30), then the main
     # training path (31), a restart from a checkpoint (32) and card == CPU (33)
-    kernels += [phase_flash_bwd(), phase_ssd_bwd()]
+    kernels += [phase_flash_bwd(), *phase_ssd_bwd()]
     elapsed("30")
     trained = [phase_train_qwen3(), phase_train_whisper(), phase_train_card_vs_cpu()]
     elapsed("31-33")
     # the ssm and hybrid families train through both SSD kernels (34-35),
     # then one float32 step of each, card against CPU (36)
     trained.append(phase_train_ssm("mamba2-2.7b", 34))
+    phase_ssm_restart()
     elapsed("34")
     trained.append(phase_train_ssm("zamba2-2.7b", 35))
     elapsed("35")

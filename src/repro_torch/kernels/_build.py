@@ -125,6 +125,10 @@ def library() -> ctypes.CDLL:
         lib.ssd_intra_chunk_launch.restype = i
         lib.ssd_intra_chunk_bwd_launch.argtypes = [p] * 13 + [i] * 6 + [p]
         lib.ssd_intra_chunk_bwd_launch.restype = i
+        lib.ssd_intra_chunk_bwd_bf16_launch.argtypes = [p] * 13 + [i] * 5 + [p]
+        lib.ssd_intra_chunk_bwd_bf16_launch.restype = i
+        lib.ssd_bwd_probe_launch.argtypes = [p] * 15 + [i, i, p]
+        lib.ssd_bwd_probe_launch.restype = i
         lib.ssd_probe_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, p]
         lib.ssd_probe_launch.restype = i
         lib.repro_cuda_error_string.argtypes = [i]

@@ -20,10 +20,14 @@ fp32 products).  It counts its launches in ``ssd_intra_chunk.launches``.
 
 Where autograd records and an input needs a gradient, the forward runs
 inside ``_SsdIntraChunk``, whose backward is ``ssd_intra_chunk_bwd``: on a
-CUDA tensor it launches ``ssd_intra_chunk_bwd_kernel`` and
-``ssd_intra_chunk_bwd_finish_kernel`` (CUDA cores, fp32, no atomics; p and
-n up to 128: ``check_bwd_domain``) and counts one in
-``ssd_intra_chunk_bwd.launches`` per call; on a CPU tensor it runs
+CUDA tensor it launches, by dtype and shape, ``ssd_bwd_col_bf16_kernel``
+and ``ssd_bwd_row_bf16_kernel`` (bf16 within ``check_bf16_bwd_domain``:
+tensor cores through ``wgmma``, fp32 operands split into bf16 terms) or
+``ssd_intra_chunk_bwd_kernel`` (fp32, and bf16 outside that domain: CUDA
+cores; p and n up to 128: ``check_bwd_domain``), then
+``ssd_intra_chunk_bwd_finish_kernel``, with no atomics, and counts one in
+``ssd_intra_chunk_bwd.launches`` per call (and in ``.bf16_launches`` when
+the tensor-core passes took it); on a CPU tensor it runs
 ``ssd_intra_chunk_bwd_plain``.  Both take exp(cs_i − cs_j) on the causal
 triangle only, where it is at most 1: above it the exponent grows with the
 chunk and overflows fp32 (past 88.7) at the configs' chunk of 256, and
@@ -39,9 +43,11 @@ import torch
 
 from . import _build
 
-__all__ = ["MAX_HEADDIM", "bf16_smem_bytes", "bwd_smem_bytes", "check_bf16_domain",
-           "check_bwd_domain", "ssd_intra_chunk", "ssd_intra_chunk_bwd",
-           "ssd_intra_chunk_bwd_plain", "ssd_intra_chunk_plain", "ssd_wgmma_layout_probe"]
+__all__ = ["MAX_HEADDIM", "bf16_bwd_domain_error", "bf16_bwd_smem_bytes", "bf16_smem_bytes",
+           "bwd_kernel", "bwd_smem_bytes", "check_bf16_bwd_domain", "check_bf16_domain",
+           "check_bwd_domain", "ssd_bwd_wgmma_layout_probe", "ssd_intra_chunk",
+           "ssd_intra_chunk_bwd", "ssd_intra_chunk_bwd_plain", "ssd_intra_chunk_plain",
+           "ssd_wgmma_layout_probe"]
 
 # fp32: p / 16 output columns per thread, at most 8; bf16: p and n in 8
 # slabs of 16 columns at most
@@ -126,6 +132,73 @@ def check_bwd_domain(bh: int, s: int, p: int, n: int, chunk: int) -> None:
     if bh > 65535 or s // chunk > 65535:
         raise ValueError(f"ssd_intra_chunk_bwd_kernel takes at most 65535 heads and chunks, "
                          f"got bh={bh}, chunks={s // chunk}")
+
+
+def bf16_bwd_smem_bytes(chunk: int, p: int, n: int) -> tuple[int, int]:
+    """Shared memory of the bf16 backward's column and row passes
+    (``ColLayout``/``RowLayout::bytes`` in ``csrc/ssd_scan_bwd.cu``), p and
+    n padded to 64 or 128 columns, in 64-row slabs of 2 KB.  Column pass: B_j and X_j, the chunk's dt, cs (fp64) and its
+    fp32 offsets from each tile's start (rounded to 256 bytes), two ring
+    stages of C_i and gy_i's three terms, 4 KB of G's column sums, the
+    mbarriers and 256 bytes of alignment slack.  Row pass: gy_i's two terms,
+    dt, cs and the offsets, two stages of B_j and X_j, the same."""
+    sp, sn = (4 if d <= 64 else 8 for d in (p, n))
+    slab = BWD_TILE * 32
+    rounded = lambda v: (v + 255) // 256 * 256
+    col = rounded((sn + sp) * slab + 16 * chunk) + 2 * (sn + 3 * sp) * slab + 4096 + 64 + 256
+    row = rounded(2 * sp * slab + 16 * chunk) + 2 * (sn + sp) * slab + 64 + 256
+    return col, row
+
+
+def bf16_bwd_domain_error(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                          gy: torch.Tensor, gst: torch.Tensor, chunk: int) -> str | None:
+    """Why the bf16 backward (``ssd_bwd_col_bf16_kernel`` and
+    ``ssd_bwd_row_bf16_kernel``) does not take these operands, or None:
+    bf16 x, B and C; chunk a multiple of 64 (the 64-row tiles of
+    ``wgmma``); p and n multiples of 16 up to 128 (slabs of 16 columns, one
+    TMA box and one ``wgmma`` k-step each); both passes within a block's
+    shared memory; 16-byte aligned x, dt, B, C, gy and gst (the TMA's and
+    the 16-byte loads' terms).  Device-free: the wrapper asks before any
+    launch."""
+    p, n = x.shape[-1], B.shape[-1]
+    if x.dtype != torch.bfloat16:
+        return f"ssd_bwd_col_bf16_kernel takes bf16 x, B and C, got {x.dtype}"
+    if chunk % 64:
+        return (f"ssd_bwd_col_bf16_kernel takes chunks of a multiple of 64 rows, "
+                f"got chunk={chunk}")
+    for name, d in (("p", p), ("n", n)):
+        if d % 16 or not 16 <= d <= MAX_HEADDIM:
+            return (f"ssd_bwd_col_bf16_kernel takes {name} a multiple of 16 up to "
+                    f"{MAX_HEADDIM}, got {name}={d}")
+    need = max(bf16_bwd_smem_bytes(chunk, p, n))
+    if need > SMEM_LIMIT:
+        return (f"ssd_bwd_col_bf16_kernel needs {need} bytes of shared memory at chunk={chunk}, "
+                f"p={p}, n={n}; a block has {SMEM_LIMIT}")
+    for name, t in (("x", x), ("dt", dt), ("B", B), ("C", C), ("gy", gy), ("gst", gst)):
+        if t.data_ptr() % 16:
+            return (f"{name} must start on a 16-byte boundary for ssd_bwd_col_bf16_kernel "
+                    f"(data_ptr {t.data_ptr():#x})")
+    return None
+
+
+def check_bf16_bwd_domain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                          gy: torch.Tensor, gst: torch.Tensor, chunk: int) -> None:
+    """Raise ``ValueError`` with ``bf16_bwd_domain_error``'s reason unless the
+    bf16 backward takes these operands."""
+    err = bf16_bwd_domain_error(x, dt, B, C, gy, gst, chunk)
+    if err is not None:
+        raise ValueError(err)
+
+
+def bwd_kernel(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+               gy: torch.Tensor, gst: torch.Tensor, chunk: int) -> str:
+    """The kernel ``ssd_intra_chunk_bwd`` launches for these CUDA operands,
+    chosen by dtype, shape and alignment before any launch:
+    ``ssd_bwd_col_bf16_kernel`` (with ``ssd_bwd_row_bf16_kernel``) within
+    the bf16 domain, else ``ssd_intra_chunk_bwd_kernel``."""
+    if bf16_bwd_domain_error(x, dt, B, C, gy, gst, chunk) is None:
+        return "ssd_bwd_col_bf16_kernel"
+    return "ssd_intra_chunk_bwd_kernel"
 
 
 def _causal_exp(cs: torch.Tensor) -> torch.Tensor:
@@ -283,38 +356,53 @@ def ssd_intra_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: t
     """The gradient of ``ssd_intra_chunk`` at (x, dt, A, B, C) given gy
     (bh, s, p) and gst (bh, s / chunk, p, n) in fp32 -> (dx, ddt, dA, dB,
     dC), dx, dB and dC in x's dtype, ddt (bh, s) and dA (bh, 1) fp32.
-    Launches ``ssd_intra_chunk_bwd_kernel`` (one block per 64-row tile,
-    chunk and head for the row terms, one per column tile for the column
-    terms) and ``ssd_intra_chunk_bwd_finish_kernel`` (the reverse scan of
-    dcs, ddt, and dA summed over the chunks in order) on a CUDA tensor,
-    within ``check_bwd_domain``; runs ``ssd_intra_chunk_bwd_plain`` on a
-    CPU tensor."""
+    On a CUDA tensor it launches, as ``bwd_kernel`` chooses,
+    ``ssd_bwd_col_bf16_kernel`` and ``ssd_bwd_row_bf16_kernel`` (bf16
+    within ``check_bf16_bwd_domain``: persistent passes over (head, chunk,
+    pair of 64-row tiles) on the tensor cores) or
+    ``ssd_intra_chunk_bwd_kernel`` (within ``check_bwd_domain``: one block
+    per 64-row tile, chunk and head for the row terms, one per column tile
+    for the column terms, CUDA cores), then
+    ``ssd_intra_chunk_bwd_finish_kernel`` (the reverse scan of dcs, ddt,
+    and dA summed over the chunks in order); on a CPU tensor it runs
+    ``ssd_intra_chunk_bwd_plain``."""
     bh, s, p, n = _check_inputs(x, dt, A, B, C, chunk)
     dev = x.device
     _build.check_tensor("gy", gy, (bh, s, p), (torch.float32,), dev)
     _build.check_tensor("gst", gst, (bh, s // chunk, p, n), (torch.float32,), dev)
     if dev.type == "cpu":
         return ssd_intra_chunk_bwd_plain(x, dt, A, B, C, gy, gst, chunk)
-    check_bwd_domain(bh, s, p, n, chunk)
+    bf16 = bwd_kernel(x, dt, B, C, gy, gst, chunk) == "ssd_bwd_col_bf16_kernel"
+    if not bf16:
+        check_bwd_domain(bh, s, p, n, chunk)
     dx = torch.empty_like(x)
     dB = torch.empty_like(B)
     dC = torch.empty_like(C)
     ddt = torch.empty((bh, s), dtype=torch.float32, device=dev)
     dA = torch.empty((bh, 1), dtype=torch.float32, device=dev)
-    # per row, in fp64: rowsum(G); colsum(G) + w u; w u; ddt's direct and
-    # state terms (the finish kernel's inputs)
-    scratch = torch.empty((4, bh, s), dtype=torch.float64, device=dev)
-    err = _build.library().ssd_intra_chunk_bwd_launch(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), gy.data_ptr(),
-        gst.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-        dC.data_ptr(), scratch.data_ptr(), bh, s, p, n, chunk, _DTYPES[x.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.raise_on_error(err, "ssd_intra_chunk_bwd_kernel")
+    # per row, in fp64: colsum(G) + w u; w u; ddt's direct and state terms;
+    # rowsum(G), whole or (bf16) in partials by 64-row column tile (the
+    # finish kernel's inputs)
+    planes = 3 + (chunk // BWD_TILE if bf16 else 1)
+    scratch = torch.empty((planes, bh, s), dtype=torch.float64, device=dev)
+    lib = _build.library()
+    ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), gy.data_ptr(),
+            gst.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), scratch.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if bf16:
+        err = lib.ssd_intra_chunk_bwd_bf16_launch(*ptrs, bh, s, p, n, chunk, stream)
+        _build.raise_on_error(err, "ssd_bwd_col_bf16_kernel")
+        ssd_intra_chunk_bwd.bf16_launches += 1
+    else:
+        err = lib.ssd_intra_chunk_bwd_launch(*ptrs, bh, s, p, n, chunk, _DTYPES[x.dtype], stream)
+        _build.raise_on_error(err, "ssd_intra_chunk_bwd_kernel")
     ssd_intra_chunk_bwd.launches += 1
     return dx, ddt, dA, dB, dC
 
 
 ssd_intra_chunk_bwd.launches = 0
+ssd_intra_chunk_bwd.bf16_launches = 0
 
 
 class _SsdIntraChunk(torch.autograd.Function):
@@ -390,3 +478,45 @@ def ssd_wgmma_layout_probe(C: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
         y.data_ptr(), st.data_ptr(), p, n, torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(err, "ssd_probe_kernel")
     return s, y, st
+
+
+def ssd_bwd_wgmma_layout_probe(B: torch.Tensor, C: torch.Tensor, X: torch.Tensor,
+                               gy: torch.Tensor, gst: torch.Tensor, Wt: torch.Tensor,
+                               Dt: torch.Tensor) -> dict:
+    """The bf16 backward's fragment layouts, checked on the card: B and C
+    (64, n), X (64, p) contiguous bf16, gy (64, p), gst (p, n), Wt and Dt
+    (64, 64) contiguous fp32 CUDA tensors, p and n multiples of 16 up to 128
+    -> fp32 tensors computed with the passes' loads, splits (fp32 into
+    bf16 terms in shared memory), descriptors and products, each
+    accumulator register written at the row and column the passes assume
+    it holds: ``s`` = B Cᵀ and ``dw`` = X gyᵀ (the column pass's Sᵀ and
+    dWᵀ, gy in three terms), ``dx`` = Wt gy (Wt in two terms as register A
+    operands, the products hi·hi, hi·mid, lo·hi) and ``db`` = Dt C (Dt in
+    two terms), ``gb`` = B gstᵀ (three terms), ``xg`` = X gst (two terms),
+    ``u`` (64,) the row sums of X ⊙ gb, and ``dwr`` = gy Xᵀ (gy's first two
+    terms: the row pass's dW).  Not counted in ``ssd_intra_chunk_bwd``'s
+    launches."""
+    dev = B.device
+    if dev.type != "cuda":
+        raise ValueError(f"ssd_bwd_wgmma_layout_probe runs on a CUDA tensor, got {dev}")
+    n, p = B.shape[-1], X.shape[-1]
+    for name, t, shape, dtype in (("B", B, (64, n), torch.bfloat16),
+                                  ("C", C, (64, n), torch.bfloat16),
+                                  ("X", X, (64, p), torch.bfloat16),
+                                  ("gy", gy, (64, p), torch.float32),
+                                  ("gst", gst, (p, n), torch.float32),
+                                  ("Wt", Wt, (64, 64), torch.float32),
+                                  ("Dt", Dt, (64, 64), torch.float32)):
+        _build.check_tensor(name, t, shape, (dtype,), dev)
+    check_bf16_bwd_domain(X, gy, B, C, gy, gst, 64)  # the probe has no dt
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = {"s": torch.empty((64, 64), **f32), "dw": torch.empty((64, 64), **f32),
+           "dx": torch.empty((64, p), **f32), "db": torch.empty((64, n), **f32),
+           "gb": torch.empty((64, p), **f32), "xg": torch.empty((64, n), **f32),
+           "u": torch.empty((64,), **f32), "dwr": torch.empty((64, 64), **f32)}
+    err = _build.library().ssd_bwd_probe_launch(
+        B.data_ptr(), C.data_ptr(), X.data_ptr(), gy.data_ptr(), gst.data_ptr(), Wt.data_ptr(),
+        Dt.data_ptr(), *(t.data_ptr() for t in out.values()), p, n,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on_error(err, "ssd_bwd_probe_kernel")
+    return out

@@ -12,7 +12,7 @@ over stages and layers is a Python loop here.  Training: ``hybrid_loss``,
 each stage (its Mamba layers and the shared block) checkpointed unless
 ``remat`` is "none", as the reference's ``jax.checkpoint`` of a stage.
 It trains on the card through both kernels' backwards
-(``ssd_intra_chunk_bwd_kernel`` once per Mamba2 layer, the attention
+(``ssd_scan.ssd_intra_chunk_bwd`` once per Mamba2 layer, the attention
 backward once per stage) and on the CPU through their plain versions.
 """
 from __future__ import annotations

@@ -139,8 +139,9 @@ def mamba_block(p, x: torch.Tensor, cfg: ArchConfig,
     """One Mamba2 layer on a full sequence.  Returns (x_out, ssm_state,
     conv_state).  The SSD scan goes through ``ops.ssd_scan``: on a CUDA
     tensor it launches ``ssd_intra_chunk_kernel`` and, where a gradient is
-    taken, its backward ``ssd_intra_chunk_bwd_kernel`` (the layer trains on
-    the card and on the CPU alike)."""
+    taken, its backward (``ssd_scan.ssd_intra_chunk_bwd``: the tensor-core
+    passes in bf16, ``ssd_intra_chunk_bwd_kernel`` in fp32; the layer
+    trains on the card and on the CPU alike)."""
     s = cfg.ssm
     dm = ssm_dims(cfg)
     h = rms_norm(x, p["ln"])
