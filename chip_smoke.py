@@ -32,7 +32,7 @@ Phases, in order; any failure raises and exits non-zero:
    the largest sums, unaligned tensors; checked, not timed), each with the
    instantiation ``patch_plan`` gave it;
 5. the main path, ``large_search(8192, 8, replicas=8, proposal_batch=4,
-   polish_iters=32)`` on the card, with both kernels' launches counted (the
+   polish_iters=16)`` on the card, with both kernels' launches counted (the
    sweep's also by (b, sw_pad), the patch's by (b, mmax)) and the result
    rechecked; then a short delta=False run, which must follow the same
    trajectory as delta=True over the same iterations;
@@ -70,7 +70,9 @@ Phases, in order; any failure raises and exits non-zero:
     non-causal at s=1500, its decoder at s=4, its cross-attention 4 queries
     against 1500 keys), and 300 launches back to back of each mask at
     qwen2-vl's s=1088, where a warpgroup of the last query tile has no
-    rows;
+    rows; then the zoo's training shapes (``ZOO_TRAIN_ATTN``: grok-1-314b
+    and kimi-k2-1t-a32b at b=1, qwen2-vl-2b at b=8, s=1088, phi3-medium-14b
+    at b=8, h=48, kv=12) also at a relative Frobenius 1e-2, and timed;
 12. the wgmma fragment layouts of ``ssd_intra_chunk_kernel`` (bf16), then
     the kernel and ``ssd_intra_chunk_fp32_kernel`` against their plain
     version at the serving shapes (b*h=320, s=1024, p=64, chunk 256, bf16
@@ -180,10 +182,12 @@ Phases, in order; any failure raises and exits non-zero:
     bf16, 1e-5 in fp32) at the training shapes (qwen3-32b: b=4, h=64, kv=8,
     s=1024, hd=128, causal; whisper-tiny at b=8: the encoder non-causal at
     s=1500, the decoder at s=448, cross-attention of 448 queries against
-    1500 keys; zamba2-2.7b: b=8, h=kv=32, s=1024, hd=80, causal), GQA,
-    head dims 16-128, ragged tails, q_offset > 0 and fp32; the forward's
-    lse output against the plain forward's; two calls at qwen3's shape bit
-    for bit; the training shapes timed beside their bound, the split's
+    1500 keys; zamba2-2.7b: b=8, h=kv=32, s=1024, hd=80, causal; the
+    zoo's, ``ZOO_TRAIN_ATTN``), GQA, head dims 16-128, ragged tails,
+    q_offset > 0 and fp32; the forward's lse output against the plain
+    forward's; two calls at qwen3's shape bit for bit; 300 launches back to
+    back at qwen2-vl-2b's (b=8, h=12, kv=2, s=1088), each equal to the
+    first; the training shapes timed beside their bound, the split's
     7-product floor, SDPA's backward and the CUDA-core design's time; then
     the bf16 SSD backward's fragment layouts (``ssd_bwd_wgmma_layout_probe``
     at seven (p, n)), then the SSD backward (``ssd_intra_chunk_bwd``: bf16
@@ -210,9 +214,9 @@ Phases, in order; any failure raises and exits non-zero:
 32. whisper-tiny training at full width and depth (bf16, seq 448, global
     batch 8, 8 steps, a checkpoint every 4): a run that crashes at step 4
     through the failure hook, restored by a fresh ``Trainer`` and trained
-    to step 8, equal to the uninterrupted run (bit for bit, else reported
-    and held to a stated tolerance); the checkpoint's leaf names equal to
-    the JAX package's (pinned);
+    to step 8, equal to the uninterrupted run bit for bit (losses, weights
+    and the optimizer's state); the checkpoint's leaf names equal to the
+    JAX package's (pinned);
 33. one float32 train step on the card and on the CPU from the same weights
     and batch: qwen3-32b at full width, depth 1 (b=2, s=128) and
     whisper-tiny at full depth (its wq and wk at fan-in d_model; the
@@ -236,11 +240,35 @@ Phases, in order; any failure raises and exits non-zero:
     SSD forward and 54 backward, 18 attention forward and 9 backward
     launches a step;
 36. phase 33 for mamba2-2.7b at depth 2 and zamba2-2.7b at depth 6 (one
-    stage), b=1, s=256 (one chunk of 256), with the SSD launches checked.
+    stage), b=1, s=256 (one chunk of 256), with the SSD launches checked;
+37. grok-1-314b training as phase 31 (``phase_train``): full width, depth 1
+    of 64, all 8 experts (6.53 B parameters), bf16, the config's Adafactor,
+    remat "full" and 8 microbatches, seq 1024, global batch 8, 6 steps;
+    model FLOPs count the top-2 experts a token meets; peak memory against
+    an Adafactor reckoning (``_reckoning``); the profiled step with the MoE
+    stages and the optimizer's span apart;
+38. kimi-k2-1t-a32b the same at depth 1 with 16 experts (top-8, the shared
+    expert, hd 112); then 4 steps with a crash at step 2 and a restore,
+    bit for bit against the uninterrupted run (``phase_restart``: losses,
+    weights, Adafactor's statistics);
+39. qwen2-vl-2b at full width and depth (28 layers, AdamW, remat "dots":
+    56 forward and 28 backward attention launches a step), seq 1088 (1024
+    image embeddings and 64 text tokens, the pipeline's M-RoPE streams);
+    then its restart at depth 2;
+40. phi3-medium-14b (padded 48/12 heads): served at full width and depth
+    (40 layers), its depth-2 float32 prefill and decode on the card against
+    the CPU (teacher-forced, as phase 29), trained at depth 4 under AdamW
+    and "dots";
+41. phase 33 for kimi-k2-1t-a32b at depth 1 with 16 experts (Adafactor;
+    the routing of every MoE call equal on both devices), qwen2-vl-2b at
+    depth 2 (1024 image embeddings, distinct M-RoPE streams) and
+    phi3-medium-14b at depth 1, each with wq and wk at fan-in d_model;
+42. zamba2-2.7b's restart at depth 12 (two stages: the shared block and
+    the attention backward twice), bit for bit.
 
 It prints one ``{"kernels": [...]}`` JSON line (per kernel: launches on the
 main paths (the BFS kernels: phases 5, 7, 19, 20, 21, 22, 23 and 24; the
-model kernels: phases 13, 15, 17, 25-28 and the training phases 31-36,
+model kernels: phases 13, 15, 17, 25-28, 40 and the training phases 31-42,
 where the attention and SSD backward kernels launch),
 the largest difference from the plain version, kernel, plain and library
 times from CUDA events around a run of calls, and the least time the card
@@ -251,8 +279,10 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -810,7 +840,7 @@ def recheck(res, n: int, k: int, fold: int, warm: float) -> None:
 
 
 def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
-               proposal_batch: int = 4, polish_iters: int = 32) -> dict:
+               proposal_batch: int = 4, polish_iters: int = 16) -> dict:
     import torch
 
     from repro_torch.core.engines import cuda_sweep
@@ -869,15 +899,15 @@ def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
     runs = {}
     for delta in (False, True, True, False):
         t0 = time.perf_counter()
-        r = large_search(n, k, polish_iters=8, delta=delta, device=DEV, **kw)
+        r = large_search(n, k, polish_iters=2, delta=delta, device=DEV, **kw)
         walls[delta].append(time.perf_counter() - t0)
         runs[delta] = (r.graph.edges, r.mpl, r.diameter, r.history, r.accepted)
     check(runs[False] == runs[True], "delta=False and delta=True trajectories differ")
-    log(f"    8 iterations: delta=False {walls[False]} s, delta=True {walls[True]} s, "
+    log(f"    2 iterations: delta=False {walls[False]} s, delta=True {walls[True]} s, "
         f"same trajectory (mpl={float(runs[True][1])!r}, accepted={runs[True][4]})")
     for delta in (False, True):
-        profile_run(lambda: large_search(n, k, polish_iters=8, delta=delta,
-                                         device=DEV, **kw), f"8 iterations, delta={delta}")
+        profile_run(lambda: large_search(n, k, polish_iters=2, delta=delta,
+                                         device=DEV, **kw), f"2 iterations, delta={delta}")
     return launches
 
 
@@ -889,8 +919,11 @@ def profile_run(fn, label: str, top: int = 6, ranges: dict | None = None,
     ``record_function`` range of that label for the run, and the device
     time of the kernels it launched is reported.  ``spans`` names
     ``record_function`` ranges the program opens itself, reported the same
-    way.  Returns the device's busy seconds, the wall seconds and each
-    hand-written kernel's device ms by name."""
+    way.  Host events are traced only for ranges or spans; else only the
+    device's activity is (phases 22-24's host events took the profiler
+    66 s to collect and parse, 4 decode steps' about 8 s).  Returns the
+    device's busy seconds, the wall seconds and each hand-written kernel's
+    device ms by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -906,7 +939,8 @@ def profile_run(fn, label: str, top: int = 6, ranges: dict | None = None,
     try:
         for name, (mod, attr, f) in saved.items():
             setattr(mod, attr, ranged(name, f))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if saved or spans else [])
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -2160,9 +2194,28 @@ def phase_flash(serving=((4, 32, 32, 1024, 80), (4, 64, 8, 1024, 128))) -> dict:
             f"launches back to back: max abs err {err:.3g} (tol {tol[b16]})")
         errs.append(err)
         del q, k, v, got, want
+    # the zoo's training shapes (phases 37-40) on the main path's layout,
+    # also held at a relative Frobenius 1e-2, then timed
+    for label, b, h, kv, sq, skv, hd, causal in ZOO_TRAIN_ATTN:
+        mk = lambda *shape: rnd(*shape).to(b16).transpose(1, 2)
+        q, k, v = mk(b, sq, h, hd), mk(b, skv, kv, hd), mk(b, skv, kv, hd)
+        got = fa.flash_attention_fwd(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        rel = float((got.float() - want.float()).norm() / want.float().norm())
+        check(err <= tol[b16] and rel <= 1e-2, f"flash_attention_kernel != plain at {label}'s "
+              f"training shape: max abs {err} (tol {tol[b16]}), relative Frobenius {rel}")
+        errs.append(err)
+        log(f"[11] flash {label} training shape b={b} h={h} kv={kv} s={sq} hd={hd} causal={causal}"
+            f": max abs err {err:.3g} (tol {tol[b16]}), relative Frobenius {rel:.3g} (tol 1e-2)")
+        del q, k, v, got, want
     for label, b, h, kv, sq, skv, hd, causal in MODEL_ZOO_ATTN:
         log(f"    {label}:")
         flash_timed(rnd, b, h, kv, sq, skv, hd, causal)
+    for label, b, h, kv, sq, skv, hd, causal in ZOO_TRAIN_ATTN:
+        log(f"    {label}:")
+        flash_timed(rnd, b, h, kv, sq, skv, hd, causal, kind="training")
     for b, h, kv, s, hd in serving:
         row = flash_timed(rnd, b, h, kv, s, s, hd)
     return {"name": "flash_attention_kernel", "route": "cuda", "source": FLASH_SOURCE,
@@ -2171,7 +2224,7 @@ def phase_flash(serving=((4, 32, 32, 1024, 80), (4, 64, 8, 1024, 128))) -> dict:
 
 
 def flash_timed(rnd, b: int, h: int, kv: int, sq: int, skv: int, hd: int,
-                causal: bool = True) -> dict:
+                causal: bool = True, kind: str = "serving") -> dict:
     """The bf16 kernel, its plain version and SDPA (GQA by ``enable_gqa``)
     at one serving prefill's shape, on the main path's layout: (b, h, s, hd)
     views of (b, s, h, hd) tensors; the bound from its FLOPs (the causal
@@ -2191,7 +2244,7 @@ def flash_timed(rnd, b: int, h: int, kv: int, sq: int, skv: int, hd: int,
     nbytes = 2 * b * hd * (2 * sq * h + 2 * skv * kv)  # q, k, v read, o written, bf16
     bms, by, terms = bound(nbytes, [(flops, BF16_FLOP_PER_S)])
     s = f"s={sq}" if sq == skv else f"sq={sq} skv={skv}"
-    log(f"    serving shape b={b} h={h} kv={kv} {s} hd={hd} causal={causal}: kernel {ms:.4f} ms "
+    log(f"    {kind} shape b={b} h={h} kv={kv} {s} hd={hd} causal={causal}: kernel {ms:.4f} ms "
         f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
         f"scaled_dot_product_attention {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s), "
         f"bound {bms:.4f} ms ({terms}; {flops / 1e9:.2f} GFLOP at "
@@ -2370,8 +2423,9 @@ def free_device() -> None:
     torch.cuda.empty_cache()
 
 
-def _model_cfg(arch: str, depth: int | None = None, **change):
-    """``arch``'s config at full width, cut to ``depth`` layers if given."""
+def _model_cfg(arch: str, depth: int | None = None, experts: int | None = None, **change):
+    """``arch``'s config at full width, cut to ``depth`` layers and an MoE
+    config to ``experts`` experts if given."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2379,6 +2433,8 @@ def _model_cfg(arch: str, depth: int | None = None, **change):
     cfg = get_config(arch)
     if depth is not None:
         change["n_layers"] = depth
+    if experts is not None:
+        change["moe"] = dataclasses.replace(cfg.moe, n_experts=experts)
     return dataclasses.replace(cfg, **change)
 
 
@@ -2657,6 +2713,35 @@ class _TeacherForcing:
                 setattr(mod, name, f)
 
 
+@contextlib.contextmanager
+def _recorded_routes(into: list):
+    """``moe._route`` with each call's expert ids (t, k) copied home into
+    ``into``, for the body of the ``with``."""
+    from repro_torch.models import moe
+
+    route = moe._route
+
+    def recorded(xf, router, m):
+        out = route(xf, router, m)
+        into.append(out[2].cpu())
+        return out
+
+    moe._route = recorded
+    try:
+        yield into
+    finally:
+        moe._route = route
+
+
+def _route_flips(cpu: list, card: list) -> list:
+    """(call, tokens routed otherwise) for each MoE call whose expert ids
+    differ between the two devices' records."""
+    import torch
+
+    return [(i, int((a != c).any(-1).sum())) for i, (a, c) in enumerate(zip(cpu, card))
+            if not torch.equal(a, c)]
+
+
 def phase_model_card_vs_cpu(arch: str, phase: int, depth: int, prompt_len: int = 128,
                             requests: int = 2, max_new: int = 8, forced: bool = False,
                             **change) -> None:
@@ -2682,7 +2767,7 @@ def phase_model_card_vs_cpu(arch: str, phase: int, depth: int, prompt_len: int =
 
     import torch
 
-    from repro_torch.models import build_model, moe
+    from repro_torch.models import build_model
 
     free_device()
     torch.backends.cuda.matmul.allow_tf32 = False  # full fp32 products on the card
@@ -2702,15 +2787,7 @@ def phase_model_card_vs_cpu(arch: str, phase: int, depth: int, prompt_len: int =
     tol_prefill = 2e-3
     tol_decode = 1e-2 if cfg.ssm is not None else tol_prefill
     forcing = _TeacherForcing(tol_prefill) if forced else None
-    routes: dict = {}
-    route = moe._route
-
-    def recorded_route(label):
-        def f(xf, router, m):
-            out = route(xf, router, m)
-            routes.setdefault(label, []).append(out[2].cpu())
-            return out
-        return f
+    routes: dict = {"cpu": [], "card": []}
 
     def run(name, model, params, feed=None):
         t0 = time.perf_counter()
@@ -2731,25 +2808,20 @@ def phase_model_card_vs_cpu(arch: str, phase: int, depth: int, prompt_len: int =
     def diffs(a, c):
         return [float((x - y).abs().max()) for x, y in zip(a, c)]
 
-    moe._route = recorded_route("cpu")
-    try:
+    with _recorded_routes(routes["cpu"]):
         ref = (forcing.run("cpu", lambda: run("cpu", cpu, p_cpu)) if forced
                else run("cpu", cpu, p_cpu))
-        if forced:
-            moe._route = route
-            free = run("card, free", card, p_card, feed=ref[1])
-            same = all(torch.equal(a, c) for a, c in zip(ref[1], free[1]))
-            log(f"    free-running card against the CPU (logged, not checked): logits max abs "
-                f"diff per step {[float(f'{e:.3g}') for e in diffs(ref[0], free[0])]}, greedy "
-                f"tokens {'equal' if same else 'differ'}")
-        moe._route = recorded_route("card")
+    if forced:
+        free = run("card, free", card, p_card, feed=ref[1])
+        same = all(torch.equal(a, c) for a, c in zip(ref[1], free[1]))
+        log(f"    free-running card against the CPU (logged, not checked): logits max abs "
+            f"diff per step {[float(f'{e:.3g}') for e in diffs(ref[0], free[0])]}, greedy "
+            f"tokens {'equal' if same else 'differ'}")
+    with _recorded_routes(routes["card"]):
         out = (forcing.run("card", lambda: run("card", card, p_card, feed=ref[1])) if forced
                else run("card", card, p_card, feed=ref[1]))
-    finally:
-        moe._route = route
     if cfg.moe is not None:
-        flips = [(i, int((a != c).any(-1).sum())) for i, (a, c)
-                 in enumerate(zip(routes["cpu"], routes["card"])) if not torch.equal(a, c)]
+        flips = _route_flips(routes["cpu"], routes["card"])
         log(f"    routing: {len(routes['cpu'])} MoE calls, {sum(a.shape[0] for a in routes['cpu'])}"
             f" token routings of top-{cfg.moe.top_k} over {cfg.moe.n_experts} experts; calls "
             f"with a token routed otherwise on the card: {flips}")
@@ -2781,15 +2853,24 @@ def phase_model_card_vs_cpu(arch: str, phase: int, depth: int, prompt_len: int =
 # Training (phases 30-33)
 # ---------------------------------------------------------------------------
 
-# the attention backward's shapes on the training paths (phases 31, 32 and
-# 35): (label, b, h, kv, sq, skv, hd, causal), bf16, b a microbatch
+# the zoo's training shapes (phases 37-40): grok-1-314b and kimi-k2-1t-a32b
+# at 8 microbatches of 1, qwen2-vl-2b's 1024 image embeddings and 64 text
+# tokens (a 64-row tail), phi3-medium-14b's padded 48/12 heads
+ZOO_TRAIN_ATTN = (
+    ("grok-1-314b", 1, 48, 8, 1024, 1024, 128, True),
+    ("kimi-k2-1t-a32b", 1, 64, 8, 1024, 1024, 112, True),
+    ("qwen2-vl-2b", 8, 12, 2, 1088, 1088, 128, True),
+    ("phi3-medium-14b", 8, 48, 12, 1024, 1024, 128, True),
+)
+# the attention backward's shapes on the training paths (phases 31, 32, 35
+# and 37-40): (label, b, h, kv, sq, skv, hd, causal), bf16, b a microbatch
 TRAIN_ATTN = (
     ("qwen3-32b", 4, 64, 8, 1024, 1024, 128, True),
     ("whisper-tiny encoder", 8, 6, 6, 1500, 1500, 64, False),
     ("whisper-tiny decoder", 8, 6, 6, 448, 448, 64, True),
     ("whisper-tiny cross-attention", 8, 6, 6, 448, 1500, 64, False),
     ("zamba2-2.7b", 8, 32, 32, 1024, 1024, 80, True),
-)
+) + ZOO_TRAIN_ATTN
 # the SSD backward's shapes on the training paths (phases 34-35): (label,
 # b*h, s, p, n, chunk), bf16 x/B/C, b a microbatch of 8 and 80 heads
 TRAIN_SSD = (
@@ -2917,7 +2998,27 @@ def phase_flash_bwd() -> dict:
     check(all(same), f"two backward calls at qwen3-32b's shape differ: dq, dk, dv equal {same}")
     log("[30] attention backward at qwen3-32b's shape, two calls: dq, dk, dv bit for bit equal")
     del q, k, v, do, o, lse, first, second
-    check(fa.flash_attention_bwd.launches == launches + len(cases) + 2,
+    # qwen2-vl's training shape (a 64-row tail past 1024, where a rowless
+    # warpgroup once trapped the forward), 300 launches back to back: each
+    # the same bits as the first
+    _, b_, h_, kv_, sq, skv, hd_, causal = ZOO_TRAIN_ATTN[2]
+    q, k, v, do = mk(b_, sq, h_, hd_), mk(b_, skv, kv_, hd_), mk(b_, skv, kv_, hd_), mk(b_, sq, h_, hd_)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    same = True
+    for _ in range(299):
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        same = same and all(bool(torch.equal(a, c)) for a, c in zip(got, first))
+    torch.cuda.synchronize()
+    e = [_rel_fro(g, w) for g, w in zip(got, want)]
+    check(same and max(e) <= tol[b16], f"the attention backward over 300 launches at b={b_} "
+          f"h={h_} kv={kv_} s={sq}: all equal to the first {same}, dq, dk, dv relative errors {e}")
+    log(f"[30] attention backward b={b_} h={h_} kv={kv_} s={sq} hd={hd_} causal={causal}, 300 "
+        f"launches back to back: each bit for bit the first's; relative Frobenius error dq "
+        f"{e[0]:.3g}, dk {e[1]:.3g}, dv {e[2]:.3g} (tol {tol[b16]})")
+    del q, k, v, do, o, lse, first, got, want
+    check(fa.flash_attention_bwd.launches == launches + len(cases) + 2 + 300,
           "the backward wrapper did not count its launches")
     fa.flash_attention_bwd.launches = launches  # comparisons do not count
 
@@ -2929,7 +3030,9 @@ def phase_flash_bwd() -> dict:
                         "src/repro/kernels/flash_attention.py:38",
             "max_abs_err": max(errs), "max_lse_err": max(lse_errs), **rows[0],
             "whisper_encoder_ms": rows[1]["ms"], "whisper_decoder_ms": rows[2]["ms"],
-            "whisper_cross_ms": rows[3]["ms"], "zamba2_ms": rows[4]["ms"]}
+            "whisper_cross_ms": rows[3]["ms"], "zamba2_ms": rows[4]["ms"],
+            "zoo_train_ms": {label: row["ms"] for (label, *_), row
+                             in zip(ZOO_TRAIN_ATTN, rows[-len(ZOO_TRAIN_ATTN):])}}
 
 
 def flash_bwd_timed(rnd, b: int, h: int, kv: int, sq: int, skv: int, hd: int,
@@ -3289,22 +3392,97 @@ def _ssd_calls_per_step(cfg) -> tuple[int, int]:
     return mb * cfg.n_layers * (1 if cfg.remat == "none" else 2), mb * cfg.n_layers
 
 
-def phase_train_qwen3(steps: int = 8, seq: int = 1024, batch: int = 8) -> dict:
-    """The main training path: ``Trainer`` on qwen3-32b at full width, depth
-    2 of 64, bf16, ``remat="full"``, 2 microbatches, AdamW as the launcher
-    sets it, ``SyntheticLM`` at seq 1024 and global batch 8, ``steps``
-    steps: per-step loss, grad norm, lr and time; the median step time,
-    tokens/s, model FLOP/s against the bf16 peak; peak memory against the
-    reckoning (bf16 weights, an fp32 accumulator, AdamW's m and v, bf16
-    gradients and a microbatch's logits); the attention kernels' launches
-    per step; then a profile of one more step."""
+def _model_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
+    """(model FLOPs of one train step, matmul parameters a token meets): 6 x
+    the matmul parameters a token meets (its attention projections, its
+    FFN: for an MoE layer the router, its top-k experts and the shared
+    ones, not the experts it skips; the head) x the step's tokens, plus 3 x
+    the attention products of the forward (the causal pairs only)."""
+    from repro_torch.models import transformer
+
+    hp, kvp, vp = transformer.padded_dims(cfg)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    if cfg.moe is not None:
+        m = cfg.moe
+        ffn = d * m.n_experts + 3 * d * m.d_ff_expert * (m.top_k + m.n_shared_experts)
+    else:
+        ffn = 3 * d * cfg.d_ff
+    mm = cfg.n_layers * (d * (hp + 2 * kvp) * hd + hp * hd * d + ffn) + d * vp
+    attn_fwd = cfg.n_layers * 4 * hp * hd * _attn_pairs(seq, seq, 0, True) * batch
+    return 6 * mm * batch * seq + 3 * attn_fwd, mm
+
+
+def _reckoning(cfg, tr, state_bytes: int, batch: int, seq: int) -> tuple[float, str]:
+    """The training path's device memory, reckoned as the weights and the
+    optimizer's state (as allocated) plus the larger of two live sets.  The
+    backward's: the gradients (an fp32 accumulator per parameter beside a
+    microbatch's gradients in the weights' dtype when there are several
+    microbatches), a microbatch's logits (4 fp32 copies at the text
+    positions; a vlm's image positions, cut after the head, only the
+    output and its gradient in the weights' dtype) and what remat keeps of
+    each layer ("dots": every weight product's output; "full": its input).
+    The optimizer's, once the logits are gone: the gradients it is given
+    (the fp32 accumulator, or the one microbatch's) and its fp32
+    temporaries at its largest leaf (Adafactor: its u and u squared;
+    AdamW, per tensor: the fp32 gradient, its denominator, its update and
+    the fp32 weights).  Returns (bytes, the terms)."""
+    from repro_torch.convert import reference_leaves
+    from repro_torch.models import transformer
+
+    params = tr.state["params"]
+    n = sum(t.numel() for t in params.parameters())
+    es = next(params.parameters()).element_size()
+    mb = cfg.microbatches
+    grads = n * (4 + es if mb > 1 else es)
+    given = n * (4 if mb > 1 else es)
+    leaves = reference_leaves(cfg, params)
+    if tr.opt.name == "adafactor":
+        largest = max(math.prod(leaf.shape) for leaf in leaves)
+        temps = 2 * 4 * largest
+    else:
+        largest = max(t.numel() for leaf in leaves for t in leaf.tensors)
+        temps = 4 * 4 * largest
+    hp, kvp, vp = transformer.padded_dims(cfg)
+    hd, d = cfg.resolved_head_dim, cfg.d_model
+    rows = batch // mb
+    tokens = rows * seq
+    img = rows * cfg.img_tokens if cfg.family == "vlm" else 0
+    logits = (4 * 4 * (tokens - img) + 2 * es * img) * vp
+    if cfg.remat == "dots":
+        kept = cfg.n_layers * tokens * ((hp + 2 * kvp) * hd + 2 * d + 2 * cfg.d_ff) * es
+    else:
+        kept = cfg.n_layers * tokens * d * es
+    backward, update = grads + logits + kept, given + temps
+    gib = 2**30
+    terms = (f"weights and {tr.opt.name} state {state_bytes / gib:.2f} + the larger of the "
+             f"backward's {backward / gib:.2f} (gradients {grads / gib:.2f}, logits "
+             f"{logits / gib:.2f}, remat {cfg.remat} {kept / gib:.2f}) and the update's "
+             f"{update / gib:.2f} (gradients {given / gib:.2f}, temporaries {temps / gib:.2f} at "
+             f"the largest {'leaf' if tr.opt.name == 'adafactor' else 'tensor'}, "
+             f"{largest / 1e9:.3f} B) GiB")
+    return state_bytes + max(backward, update), terms
+
+
+def phase_train(arch: str, phase: int, depth: int | None = None, steps: int = 6,
+                seq: int = 1024, batch: int = 8, experts: int | None = None) -> dict:
+    """A training path: ``Trainer`` on ``arch`` at full width (cut to
+    ``depth`` layers and ``experts`` experts if given), bf16, the config's
+    optimizer, remat and microbatches as the launcher sets them,
+    ``SyntheticLM`` at ``seq`` and global batch ``batch`` (a vlm: its
+    image embeddings and M-RoPE streams), ``steps`` steps: per-step loss,
+    grad norm, lr and time, each finite; the median step, tokens/s, model
+    FLOP/s against the bf16 peak (``_model_flops``); peak memory against
+    the reckoning (``_reckoning``, 8 GiB allowed); the attention kernels'
+    launches per step against ``_attn_calls_per_step``; then a profile of
+    one more step with the loss's forward, the MoE stages and the
+    optimizer's span apart."""
     import torch
 
     from repro_torch.models import transformer
     from repro_torch.train import SPAN_GRADS, SPAN_OPTIMIZER
 
     free_device()
-    cfg = _model_cfg("qwen3-32b", depth=2)
+    cfg = _model_cfg(arch, depth, experts)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tr = _trainer(cfg, steps, seq, batch)  # the CUDA device: no device argument
@@ -3312,55 +3490,53 @@ def phase_train_qwen3(steps: int = 8, seq: int = 1024, batch: int = 8) -> dict:
     torch.cuda.synchronize()
     n = sum(t.numel() for t in tr.state["params"].parameters())
     state_bytes = torch.cuda.memory_allocated()
-    log(f"[31] qwen3-32b training, full width, depth {cfg.n_layers}: {n / 1e9:.3f} B "
-        f"parameters, weights and AdamW state {state_bytes / 2**30:.2f} GiB, made in "
+    cut = "" if depth is None else f", depth {cfg.n_layers}"
+    cut += "" if experts is None else f", {experts} experts"
+    log(f"[{phase}] {arch} training, full width{cut}: {n / 1e9:.3f} B parameters, weights and "
+        f"{cfg.optimizer} state {state_bytes / 2**30:.2f} GiB, made in "
         f"{time.perf_counter() - t0:.2f} s; remat {cfg.remat}, {cfg.microbatches} "
-        f"microbatches, global batch {batch} x {seq} tokens")
+        f"microbatch(es), global batch {batch} x {seq} tokens"
+        + (f" ({cfg.img_tokens} image embeddings)" if cfg.family == "vlm" else ""))
     _reset_train_counts()
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     hist = tr.train(steps, log_every=0)
+    wall = time.perf_counter() - t0
     launches = _train_counts()
     peak = torch.cuda.max_memory_allocated()
     for h in hist:
         log(f"    step {h['step']}: loss {h['loss']:.4f}, grad norm {h['grad_norm']:.4f}, lr "
             f"{h['lr']:.3g}, {h['time_s'] * 1e3:.1f} ms")
     check(all(np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist),
-          "a loss or grad norm is not finite")
+          f"an {arch} loss or grad norm is not finite")
     fwd, bwd = _attn_calls_per_step(cfg)
     want = {"flash_attention_kernel": steps * fwd, "flash_attention_bwd_kernel": steps * bwd,
             "ssd_intra_chunk_kernel": 0, "ssd_intra_chunk_bwd_kernel": 0,
             "ssd_intra_chunk_bwd_bf16_kernel": 0}
-    check(launches == want, f"training launches {launches}, expected {want}")
+    check(launches == want, f"{arch} training launches {launches}, expected {want}")
     med = float(np.median([h["time_s"] for h in hist[1:]]))
-    tokens = batch * seq
-    hp, kvp, vp = transformer.padded_dims(cfg)
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    mm_params = cfg.n_layers * (d * (hp + 2 * kvp) * hd + hp * hd * d + 3 * d * cfg.d_ff) + d * vp
-    attn_fwd = cfg.n_layers * 4 * hp * hd * _attn_pairs(seq, seq, 0, True) * batch
-    model_flops = 6 * mm_params * tokens + 3 * attn_fwd
-    # the reckoning: bf16 weights and gradients, the fp32 accumulator, AdamW's
-    # fp32 m and v (16 bytes a parameter) and a microbatch's logits with
-    # their gradient in fp32 and bf16 (about 4 copies of b x s x vocab)
-    logits = (batch // cfg.microbatches) * seq * vp
-    reckoned = 16 * n + 4 * 4 * logits
-    log(f"    median step (steps 1-{steps - 1}) {med * 1e3:.1f} ms: {tokens / med:.0f} tokens/s, "
-        f"{model_flops / med / 1e12:.1f} TFLOP/s of model FLOPs ({model_flops / 1e12:.2f} TFLOP "
-        f"a step: 6 x {mm_params / 1e9:.3f} B matmul parameters x {tokens} tokens + attention), "
-        f"{100 * model_flops / med / BF16_FLOP_PER_S:.1f}% of {BF16_FLOP_PER_S / 1e12:.0f} "
-        f"TFLOP/s bf16; peak device memory {peak / 2**30:.2f} GiB (reckoned "
-        f"{reckoned / 2**30:.2f} GiB: 16 bytes x {n / 1e9:.3f} B parameters + 4 fp32 copies of "
-        f"a microbatch's logits); launches {launches}, per step forward {fwd}, backward {bwd}")
+    flops, mm = _model_flops(cfg, batch, seq)
+    reckoned, terms = _reckoning(cfg, tr, state_bytes, batch, seq)
+    log(f"    {steps} steps in {wall:.2f} s; median step (steps 1-{steps - 1}) {med * 1e3:.1f} "
+        f"ms: {batch * seq / med:.0f} tokens/s, {flops / med / 1e12:.1f} TFLOP/s of model FLOPs "
+        f"({flops / 1e12:.2f} TFLOP a step: 6 x {mm / 1e9:.3f} B matmul parameters a token "
+        f"meets x {batch * seq} tokens + attention), {100 * flops / med / BF16_FLOP_PER_S:.1f}% "
+        f"of {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16; peak device memory "
+        f"{peak / 2**30:.2f} GiB (reckoned {reckoned / 2**30:.2f} GiB: {terms}); launches "
+        f"{launches}, per step forward {fwd}, backward {bwd}")
     check(peak <= reckoned + 8 * 2**30,
           f"peak device memory {peak / 2**30:.2f} GiB exceeds the reckoning "
           f"{reckoned / 2**30:.2f} GiB by more than 8 GiB")
-    _, wall, kms = profile_run(lambda: tr.train(1, log_every=0), "one train step", top=12,
-                               ranges={"cross_entropy_loss (forward)":
-                                       (transformer, "cross_entropy_loss")},
-                               spans=(SPAN_GRADS, SPAN_OPTIMIZER))
+    ranges = {"cross_entropy_loss (forward)": (transformer, "cross_entropy_loss")}
+    if cfg.moe is not None:
+        ranges.update(_moe_ranges())
+    _, wall, kms = profile_run(lambda: tr.train(1, log_every=0), f"one {arch} train step",
+                               top=12, ranges=ranges, spans=(SPAN_GRADS, SPAN_OPTIMIZER))
     bwd_ms = sum(kms[name] for name in BWD_BF16_KERNELS)
     log(f"    the attention backward in the profiled step: {bwd_ms:.2f} ms of {wall * 1e3:.1f} ms "
         f"({100 * bwd_ms / (wall * 1e3):.1f}%; "
-        + ", ".join(f"{name} {kms[name]:.2f} ms" for name in BWD_BF16_KERNELS) + ")")
+        + ", ".join(f"{name} {kms[name]:.2f} ms" for name in BWD_BF16_KERNELS)
+        + f"), the forward {kms['flash_attention_kernel']:.2f} ms")
     return launches
 
 
@@ -3368,10 +3544,9 @@ def phase_train_whisper(steps: int = 8, seq: int = 448, batch: int = 8, every: i
     """whisper-tiny (encdec) at full width and depth, bf16: ``steps`` steps
     with a checkpoint every ``every``; a second run that crashes (the
     failure hook) at step ``every`` after its checkpoint there, and a fresh
-    ``Trainer`` that restores it and trains to ``steps``: its losses and
-    final weights against the uninterrupted run's, bit for bit (the path's
-    kernels and ops are deterministic; a difference is reported by tensor
-    and held to a stated tolerance); the checkpoint's leaf names against
+    ``Trainer`` that restores it and trains to ``steps``: its losses,
+    final weights and AdamW state against the uninterrupted run's, bit for
+    bit (``_restart_matches``); the checkpoint's leaf names against
     the JAX package's; then the backward kernels' first two steps against
     the plain backward's (``_whisper_bwd_plain_gap``)."""
     import hashlib
@@ -3421,10 +3596,10 @@ def _restart_matches(cfg, a, hist_a, steps: int, seq: int, batch: int, every: in
                      note: str = "") -> None:
     """A second run of ``cfg`` that crashes (the failure hook) at step
     ``every`` after its checkpoint there (in ``ckpt_dir``), and a fresh
-    ``Trainer`` that restores it and trains to ``steps``: its losses and
-    final weights against the uninterrupted run ``a``'s (``hist_a``), bit
-    for bit (the path's kernels and ops are deterministic; a difference is
-    reported by tensor and held to a stated tolerance)."""
+    ``Trainer`` that restores it and trains to ``steps``: its losses, final
+    weights and optimizer state against the uninterrupted run ``a``'s
+    (``hist_a``), bit for bit (the path's kernels and ops are
+    deterministic); a difference is reported by tensor and fails."""
     import torch
 
     from repro_torch.checkpoint import ckpt
@@ -3455,18 +3630,16 @@ def _restart_matches(cfg, a, hist_a, steps: int, seq: int, batch: int, every: in
     pa = a.state["params"].state_dict()
     pc = c.state["params"].state_dict()
     differ = [k for k in pa if not torch.equal(pa[k], pc[k])]
-    if la == lc and not differ:
-        log(f"    restart from step {every}: losses {lc} and all {len(pa)} weight tensors "
-            f"equal the uninterrupted run's bit for bit{note}")
-    else:
-        # the rule when an op on the path is not deterministic on the card
-        worst = max((_rel_fro(pc[k], pa[k]) for k in differ), default=0.0)
-        dl = max(abs(x - y) / abs(x) for x, y in zip(la, lc))
-        log(f"    restart from step {every}: NOT bit for bit: losses {la} vs {lc} (relative "
-            f"{dl:.3g}), {len(differ)} weight tensors differ (worst relative Frobenius "
-            f"{worst:.3g}): {differ[:6]}")
-        check(dl <= 1e-4 and worst <= 1e-3,
-              "the restarted run is beyond the tolerance (losses 1e-4, weights 1e-3)")
+    sa = dict(ckpt._flatten_with_paths(a.state["opt_state"]))
+    sc = dict(ckpt._flatten_with_paths(c.state["opt_state"]))
+    state_differ = [k for k in sa if not torch.equal(sa[k], sc[k])]
+    worst = max((_rel_fro(pc[k], pa[k]) for k in differ), default=0.0)
+    check(la == lc and not differ and sa.keys() == sc.keys() and not state_differ,
+          f"the restart from step {every} is not bit for bit: losses {la} vs {lc}, "
+          f"{len(differ)} weight tensors differ (worst relative Frobenius {worst:.3g}): "
+          f"{differ[:6]}; {a.opt.name} state tensors differ: {state_differ[:6]}")
+    log(f"    restart from step {every}: losses {lc}, all {len(pa)} weight tensors and all "
+        f"{len(sa)} {a.opt.name} state tensors equal the uninterrupted run's bit for bit{note}")
 
 
 def _recording(tr) -> list:
@@ -3533,12 +3706,15 @@ def _whisper_bwd_plain_gap(cfg, steps: int, seq: int, batch: int) -> None:
 def _card_vs_cpu_step(cfg, b: int, s: int, lr: float, rescale_qk: bool = False) -> dict:
     """One float32 train step of ``cfg`` on the card and on the CPU from the
     card's initial weights (with ``rescale_qk``, every ``wq`` and ``wk``
-    first scaled to a fan-in of d_model) and the same batch.  Returns both
+    first scaled to a fan-in of d_model) and the same batch (a vlm's with
+    distinct M-RoPE streams, ``mrope_positions``).  Returns both
     histories, the worst relative Frobenius distance of a gradient tensor
     (the ones the optimizer was given, before its clip), the largest
     updated-weight difference, the largest share of a tensor's elements
-    beyond 1e-5 of its magnitude (plus 1e-6), the launches and both
-    times."""
+    beyond 1e-5 of its magnitude (plus 1e-6), the launches, both times
+    and, for an MoE config, the MoE calls whose routing (every token's
+    top-k expert ids, the recomputed forward's too) differs between the
+    devices."""
     import copy
 
     import torch
@@ -3556,51 +3732,79 @@ def _card_vs_cpu_step(cfg, b: int, s: int, lr: float, rescale_qk: bool = False) 
     p_cpu = copy.deepcopy(card.state["params"]).to("cpu")  # the card's weights
     cpu.state = {"params": p_cpu, "step": 0,
                  "opt_state": cpu.opt.init(reference_leaves(cfg, p_cpu))}
+    if cfg.family == "vlm":  # the image on a grid, then the text
+        for tr in (card, cpu):
+            def batch(i=None, draw=tr.data.batch):
+                out = draw(i)
+                out["positions"] = torch.from_numpy(
+                    mrope_positions(b, cfg.img_tokens, s - cfg.img_tokens))
+                return out
+            tr.data.batch = batch
     g_card, g_cpu = _recording(card), _recording(cpu)
+    routes: dict = {"card": [], "cpu": []}
+
+    def run(tr, name):
+        with _recorded_routes(routes[name]):
+            t0 = time.perf_counter()
+            h = tr.train(1, log_every=0)[0]
+            return h, time.perf_counter() - t0
+
     _reset_train_counts()
-    t0 = time.perf_counter()
-    hc = card.train(1, log_every=0)[0]
-    t_card = time.perf_counter() - t0
+    hc, t_card = run(card, "card")
     counts = _train_counts()
-    t0 = time.perf_counter()
-    hp = cpu.train(1, log_every=0)[0]
-    t_cpu = time.perf_counter() - t0
+    hp, t_cpu = run(cpu, "cpu")
+    flips = _route_flips(routes["cpu"], routes["card"])
     out = {"card": hc, "cpu": hp, "grad": 0.0, "grad_worst": "", "share": 0.0, "far": 0.0,
-           "worst": "", "launches": counts, "t_card": t_card, "t_cpu": t_cpu}
+           "worst": "", "launches": counts, "t_card": t_card, "t_cpu": t_cpu,
+           "routes": (len(routes["cpu"]), len(routes["card"]), flips)}
     names = [n for leaf in reference_leaves(cfg, p_cpu) for n in [leaf.path] * len(leaf.tensors)]
-    for name, gc, gp in zip(names, g_card[0], g_cpu[0]):
-        err = _rel_fro(gc, gp)
+    for name, gc_, gp in zip(names, g_card[0], g_cpu[0]):
+        err = _rel_fro(gc_, gp)
         if err > out["grad"]:
             out["grad"], out["grad_worst"] = err, name
     pc = card.state["params"].state_dict()
     for name, want in cpu.state["params"].state_dict().items():
-        diff = (pc[name].cpu() - want).abs()
-        share = float((diff > 1e-5 * want.abs().max() + 1e-6).float().mean())
-        if share > out["share"] or float(diff.max()) > out["far"]:
+        # in place on a copy: a weight may be gigabytes
+        diff = pc[name].to("cpu", copy=True).sub_(want).abs_()
+        share = int((diff > 1e-5 * want.abs().max() + 1e-6).sum()) / diff.numel()
+        far = float(diff.max())
+        if share > out["share"] or far > out["far"]:
             out["worst"] = name
-        out["share"], out["far"] = max(out["share"], share), max(out["far"], float(diff.max()))
+        out["share"], out["far"] = max(out["share"], share), max(out["far"], far)
+        del diff
     return out
 
 
-# phase 33's float32 steps: (arch, depth, b, s, wq and wk rescaled, checked)
-CARD_VS_CPU_DENSE = (("qwen3-32b", 1, 2, 128, False, True),
-                     ("whisper-tiny", None, 2, 64, False, False),
-                     ("whisper-tiny", None, 2, 64, True, True))
+# phase 33's float32 steps: (arch, depth, b, s, wq and wk rescaled, checked,
+# experts)
+CARD_VS_CPU_DENSE = (("qwen3-32b", 1, 2, 128, False, True, None),
+                     ("whisper-tiny", None, 2, 64, False, False, None),
+                     ("whisper-tiny", None, 2, 64, True, True, None))
 # phase 36's: mamba2-2.7b at depth 2 and zamba2-2.7b at depth 6, its one
 # stage (6 Mamba2 layers and the shared attention block), 256 tokens: one
 # chunk of 256, where cs falls to about -200
-CARD_VS_CPU_SSM = (("mamba2-2.7b", 2, 1, 256, False, True),
-                   ("zamba2-2.7b", 6, 1, 256, False, True))
+CARD_VS_CPU_SSM = (("mamba2-2.7b", 2, 1, 256, False, True, None),
+                   ("zamba2-2.7b", 6, 1, 256, False, True, None))
+# phase 41's: kimi-k2-1t-a32b at depth 1 with 16 experts (Adafactor, the
+# shared expert, hd 112), qwen2-vl-2b at depth 2 with its 1024 image
+# embeddings and 64 text tokens, phi3-medium-14b at depth 1 (48/12 padded
+# heads); none has qk-norm, so wq and wk are scaled as whisper-tiny's
+CARD_VS_CPU_ZOO = (("kimi-k2-1t-a32b", 1, 2, 128, True, True, 16),
+                   ("qwen2-vl-2b", 2, 1, 1088, True, True, None),
+                   ("phi3-medium-14b", 1, 2, 128, True, True, None))
 
 
 def phase_train_card_vs_cpu(runs=CARD_VS_CPU_DENSE, phase: int = 33) -> dict:
     """One float32 train step on the card and on the CPU from the same
-    weights and batch (AdamW at lr 1e-3), per entry of ``runs``: in phase 33
-    qwen3-32b at full width, depth 1, b = 2, s = 128, one microbatch, and
-    whisper-tiny at full width and depth (b = 2, s = 64 against its 1500
-    frames); in phase 36 mamba2-2.7b and zamba2-2.7b (``CARD_VS_CPU_SSM``),
-    through both SSD kernels and, for zamba2, both attention kernels; each
-    run's launches against the reckoning.  Checked: the loss and
+    weights and batch (the config's optimizer at lr 1e-3), per entry of
+    ``runs``: in phase 33 qwen3-32b at full width, depth 1, b = 2, s = 128,
+    one microbatch, and whisper-tiny at full width and depth (b = 2, s = 64
+    against its 1500 frames); in phase 36 mamba2-2.7b and zamba2-2.7b
+    (``CARD_VS_CPU_SSM``), through both SSD kernels and, for zamba2, both
+    attention kernels; in phase 41 kimi-k2-1t-a32b under Adafactor (its
+    routing equal on both devices), qwen2-vl-2b with images and phi3-medium-14b
+    (``CARD_VS_CPU_ZOO``); each run's launches against the reckoning.
+    Checked: the loss and
     grad norm within a relative 1e-4; every gradient tensor the optimizer
     is given within a relative Frobenius 1e-3 of the CPU's (float32 sums in
     other orders, the attention backward kernel against autograd through
@@ -3608,7 +3812,8 @@ def phase_train_card_vs_cpu(runs=CARD_VS_CPU_DENSE, phase: int = 33) -> dict:
     That last bound is all a weight allows: AdamW's first step moves an
     element by lr g / (|g| + eps) (plus the decay), so an element whose
     gradient lies within the two devices' rounding of zero, or near eps,
-    may land anywhere in 2 lr; the share of elements beyond 1e-5 of their
+    may land anywhere in 2 lr (Adafactor's moves it by lr g / rms, which
+    such a g leaves near 0); the share of elements beyond 1e-5 of their
     tensor's magnitude is logged.
 
     whisper-tiny is checked with its query and key projections scaled to a
@@ -3627,8 +3832,8 @@ def phase_train_card_vs_cpu(runs=CARD_VS_CPU_DENSE, phase: int = 33) -> dict:
     log(f"[{phase}] host memory (free -g): {' | '.join(line.strip() for line in free[:2])}")
     launches: dict = {}
     lr = 1e-3
-    for arch, depth, b, s, rescale, checked in runs:
-        cfg = _model_cfg(arch, depth, dtype="float32", microbatches=1)
+    for arch, depth, b, s, rescale, checked, experts in runs:
+        cfg = _model_cfg(arch, depth, experts, dtype="float32", microbatches=1)
         r = _card_vs_cpu_step(cfg, b, s, lr, rescale_qk=rescale)
         hc, hp = r["card"], r["cpu"]
         fwd, bwd = _attn_calls_per_step(cfg)
@@ -3642,7 +3847,15 @@ def phase_train_card_vs_cpu(runs=CARD_VS_CPU_DENSE, phase: int = 33) -> dict:
         d_loss = abs(hc["loss"] - hp["loss"]) / abs(hp["loss"])
         d_norm = abs(hc["grad_norm"] - hp["grad_norm"]) / abs(hp["grad_norm"])
         label = (f"{arch}{'' if depth is None else f' depth {depth}'}"
-                 f"{', wq and wk at fan-in d_model' if rescale else ''} float32, {b} x {s} tokens")
+                 f"{'' if experts is None else f', {experts} experts'}"
+                 f"{', wq and wk at fan-in d_model' if rescale else ''} float32, {cfg.optimizer}, "
+                 f"{b} x {s} tokens")
+        n_cpu, n_card, flips = r["routes"]
+        if cfg.moe is not None:
+            log(f"    routing: {n_cpu} MoE calls on the CPU, {n_card} on the card (the forward "
+                f"and its recompute); calls with a token routed otherwise on the card: {flips}")
+            check(n_cpu == n_card > 0 and not flips,
+                  f"{label}: the routing differs between the card and the CPU: {flips}")
         log(f"    {label}{'' if checked else ' (logged, not checked)'}: loss card "
             f"{hc['loss']:.6f} / CPU {hp['loss']:.6f} (relative {d_loss:.3g}), grad norm "
             f"{hc['grad_norm']:.6f} / {hp['grad_norm']:.6f} ({d_norm:.3g}); gradients: worst "
@@ -3743,36 +3956,44 @@ def phase_train_ssm(arch: str, phase: int, steps: int = 6, seq: int = 1024, batc
     return launches
 
 
-def phase_ssm_restart(arch: str = "mamba2-2.7b", depth: int = 2, steps: int = 4, every: int = 2,
-                      seq: int = 1024, batch: int = 8) -> None:
-    """``arch`` at full width and depth ``depth``, bf16, through both SSD
-    kernels: ``steps`` steps with a checkpoint every ``every``, then a run
-    that crashes at step ``every`` and a fresh ``Trainer`` that restores its
-    checkpoint and trains on, bit for bit against the uninterrupted run
-    (``_restart_matches``): the tensor-core SSD backward's determinism end to
-    end.  Part of phase 34."""
+def phase_restart(arch: str, phase: int, depth: int, steps: int = 4, every: int = 2,
+                  seq: int = 1024, batch: int = 8, experts: int | None = None) -> dict:
+    """``arch`` at full width, depth ``depth`` (and ``experts`` experts if
+    given), bf16, its config's optimizer, remat and microbatches: ``steps``
+    steps uninterrupted, then a run that crashes at step ``every`` after its
+    checkpoint there and a fresh ``Trainer`` that restores it and trains
+    on, bit for bit against the uninterrupted run (``_restart_matches``):
+    the determinism of the path's kernels and ops end to end (the SSD and
+    attention backward kernels, an MoE layer's dispatch and combine).  The
+    uninterrupted run's launches against the reckoning."""
     import shutil
     import tempfile
 
     free_device()
-    cfg = _model_cfg(arch, depth)
+    cfg = _model_cfg(arch, depth, experts)
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         _reset_train_counts()
-        a = _trainer(cfg, steps, seq, batch, ckpt_dir=os.path.join(root, "a"), ckpt_every=every)
+        a = _trainer(cfg, steps, seq, batch)
         a.init(0)
+        t0 = time.perf_counter()
         hist_a = a.train(steps, log_every=0)
+        wall = time.perf_counter() - t0
         launches = _train_counts()
-        _, sbwd = _ssd_calls_per_step(cfg)
-        check(launches["ssd_intra_chunk_bwd_bf16_kernel"] == steps * sbwd
-              and launches["ssd_intra_chunk_bwd_kernel"] == 0,
-              f"{arch} at depth {depth}: launches {launches}")
+        fwd, bwd = _attn_calls_per_step(cfg)
+        sfwd, sbwd = _ssd_calls_per_step(cfg)
+        want = {"flash_attention_kernel": steps * fwd, "flash_attention_bwd_kernel": steps * bwd,
+                "ssd_intra_chunk_kernel": steps * sfwd, "ssd_intra_chunk_bwd_kernel": 0,
+                "ssd_intra_chunk_bwd_bf16_kernel": steps * sbwd}
+        check(launches == want, f"{arch} at depth {depth}: launches {launches}, expected {want}")
         check(all(np.isfinite(h["loss"]) for h in hist_a), f"an {arch} loss is not finite")
-        log(f"[34] {arch} at full width, depth {depth}, bf16, global batch {batch} x {seq} "
-            f"tokens, {steps} steps with a checkpoint every {every}: losses "
+        cut = "" if experts is None else f", {experts} experts"
+        log(f"[{phase}] {arch} at full width, depth {depth}{cut}, bf16, {cfg.optimizer}, global "
+            f"batch {batch} x {seq} tokens, {steps} steps in {wall:.2f} s: losses "
             f"{[round(h['loss'], 4) for h in hist_a]}; launches {launches}")
         _restart_matches(cfg, a, hist_a, steps, seq, batch, every, os.path.join(root, "b"))
         del a
+        return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3818,8 +4039,6 @@ def _ssd_bwd_plain_gap(cfg, steps: int, seq: int, batch: int, tol: float) -> Non
 
 
 def main() -> int:
-    import dataclasses
-
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch not found)", file=sys.stderr)
@@ -3832,8 +4051,13 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     t_start = time.perf_counter()
 
+    last = [t_start]
+
     def elapsed(phases: str) -> None:
-        log(f"    phases {phases} done, {time.perf_counter() - t_start:.1f} s since the start")
+        now = time.perf_counter()
+        log(f"    phases {phases} done in {now - last[0]:.1f} s, {now - t_start:.1f} s since the "
+            f"start")
+        last[0] = now
 
     smi = phase_device()
     phase_build()
@@ -3893,25 +4117,45 @@ def main() -> int:
     elapsed("27-28")
     phase_model_card_vs_cpu("qwen2-vl-2b", 29, depth=2, prompt_len=64, forced=True)
     phase_model_card_vs_cpu("whisper-tiny", 29, depth=4, prompt_len=4, forced=True)
-    kimi_moe = _model_cfg("kimi-k2-1t-a32b").moe
-    phase_model_card_vs_cpu("kimi-k2-1t-a32b", 29, depth=1, forced=True,
-                            moe=dataclasses.replace(kimi_moe, n_experts=16))
+    phase_model_card_vs_cpu("kimi-k2-1t-a32b", 29, depth=1, forced=True, experts=16)
     elapsed("29")
     # training: the attention backward kernel (phase 30), then the main
     # training path (31), a restart from a checkpoint (32) and card == CPU (33)
     kernels += [phase_flash_bwd(), *phase_ssd_bwd()]
     elapsed("30")
-    trained = [phase_train_qwen3(), phase_train_whisper(), phase_train_card_vs_cpu()]
+    trained = [phase_train("qwen3-32b", 31, depth=2, steps=8), phase_train_whisper(),
+               phase_train_card_vs_cpu()]
     elapsed("31-33")
     # the ssm and hybrid families train through both SSD kernels (34-35),
     # then one float32 step of each, card against CPU (36)
     trained.append(phase_train_ssm("mamba2-2.7b", 34))
-    phase_ssm_restart()
+    trained.append(phase_restart("mamba2-2.7b", 34, depth=2))
     elapsed("34")
     trained.append(phase_train_ssm("zamba2-2.7b", 35))
     elapsed("35")
     trained.append(phase_train_card_vs_cpu(CARD_VS_CPU_SSM, phase=36))
     elapsed("36")
+    # the rest of the zoo trains through the attention kernels: the moe
+    # family under Adafactor (37-38), the vlm with its images (39) and a
+    # dense config under "dots" with padded heads, also served (40); the
+    # MoE and vlm restarts bit for bit; one float32 step of each, card
+    # against CPU (41); zamba2's restart at two stages (42)
+    trained.append(phase_train("grok-1-314b", 37, depth=1))
+    elapsed("37")
+    trained.append(phase_train("kimi-k2-1t-a32b", 38, depth=1, experts=16))
+    trained.append(phase_restart("kimi-k2-1t-a32b", 38, depth=1, experts=16))
+    elapsed("38")
+    trained.append(phase_train("qwen2-vl-2b", 39, seq=1088))
+    trained.append(phase_restart("qwen2-vl-2b", 39, depth=2, seq=1088))
+    elapsed("39")
+    served.append(phase_serve("phi3-medium-14b", 40))
+    phase_model_card_vs_cpu("phi3-medium-14b", 40, depth=2, forced=True)
+    trained.append(phase_train("phi3-medium-14b", 40, depth=4))
+    elapsed("40")
+    trained.append(phase_train_card_vs_cpu(CARD_VS_CPU_ZOO, phase=41))
+    elapsed("41")
+    trained.append(phase_restart("zamba2-2.7b", 42, depth=12))
+    elapsed("42")
     log(f"    launches on the invariants' paths: Table 1 {invariants[0]}, "
         f"whole graph {invariants[1]}, 256-node suite {invariants[2]}, "
         f"layout and remesh {invariants[3]}, collectives {invariants[4]}, "
@@ -3920,11 +4164,14 @@ def main() -> int:
         launches = {name: launches[name] + run[name] for name in launches}
     log(f"    launches on the serving paths: zamba2 {served[0]}, qwen3 {served[1]}, "
         f"mamba2 {served[2]}, grok {served[3]}, kimi {served[4]}, qwen2-vl {served[5]} and "
-        f"as text {served[6]}, whisper {served[7]}")
+        f"as text {served[6]}, whisper {served[7]}, phi3 {served[8]}")
     launches.update({name: sum(run[name] for run in served) for name in served[0]})
     log(f"    launches on the training paths: qwen3 {trained[0]}, whisper {trained[1]}, "
-        f"card against CPU {trained[2]}, mamba2 {trained[3]}, zamba2 {trained[4]}, "
-        f"card against CPU (ssm, hybrid) {trained[5]}")
+        f"card against CPU {trained[2]}, mamba2 {trained[3]} and its restart {trained[4]}, "
+        f"zamba2 {trained[5]}, card against CPU (ssm, hybrid) {trained[6]}, grok {trained[7]}, "
+        f"kimi {trained[8]} and its restart {trained[9]}, qwen2-vl {trained[10]} and its "
+        f"restart {trained[11]}, phi3 {trained[12]}, card against CPU (moe, vlm, dense) "
+        f"{trained[13]}, zamba2's restart {trained[14]}")
     for name in trained[0]:
         launches[name] = launches.get(name, 0) + sum(run[name] for run in trained)
     for kern in kernels:

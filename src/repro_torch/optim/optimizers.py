@@ -19,8 +19,8 @@ old ones): the parameters, the state and, for the clip, the gradients.
 AdamW is elementwise, so it runs layer by layer on views of the stacked
 state.  Adafactor is not: it factors the last two dims of the *stacked*
 leaf (a stack of 1-D scales, (L, d), is factored once L >= 16) and clips
-the update by its RMS over the whole stacked leaf, so it stacks each
-leaf's gradients and parameters and updates them as one.
+the update by its RMS over the whole stacked leaf, so it keeps the
+leaf's u whole and walks its layers and matrices in slices.
 
 Scalars (the step's learning rate, bias corrections, the clip scale) are
 0-d fp32 tensors on the parameters' device, so an update never waits for
@@ -179,11 +179,50 @@ def _factored_dims(shape) -> tuple[int, int] | None:
     return len(shape) - 2, len(shape) - 1
 
 
+# the elements of one slice of Adafactor's update (of a factored leaf, a
+# run of whole matrices along its leading axes; 256 MiB in fp32): its
+# temporaries are a slice's, beside one fp32 copy of the leaf (u) and, for
+# u's RMS, u squared
+SLICE_ELEMS = 1 << 26
+
+
+def _pieces(leaf: Leaf, gs: list, st: dict) -> list[tuple]:
+    """(parameter, gradient, statistics) per part of the leaf that its
+    factored statistics do not span: each layer of a stacked leaf with its
+    rows of the stacked statistics, or the leaf whole.  A stack of 1-D
+    scales, (L, d), is factored across its layers, so it comes as one
+    stacked fp32 copy (tiny), which the caller copies back."""
+    if not leaf.stacked:
+        return [(leaf.tensors[0], gs[0], st)]
+    if len(leaf.shape) == 2:
+        return [(leaf.stack(), torch.stack([g.float() for g in gs]), st)]
+    return [(p, g, {k: v[j] for k, v in st.items()})
+            for j, (p, g) in enumerate(zip(leaf.tensors, gs))]
+
+
+def _slices(shape: tuple, factored: bool) -> tuple[tuple[int, ...], list[slice]]:
+    """A piece's shape as (rows, *inner) and the row ranges of its slices:
+    whole matrices (the last two dims) when factored, else elements."""
+    inner = tuple(shape[-2:]) if factored else ()
+    rows = math.prod(shape[:-2]) if factored else math.prod(shape)
+    step = max(1, SLICE_ELEMS // max(math.prod(inner), 1))
+    return (rows, *inner), [slice(a, min(a + step, rows)) for a in range(0, rows, step)]
+
+
 def adafactor(lr: Callable | float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
               clip_norm: float = 1.0, weight_decay: float = 0.0,
               min_dim_size_to_factor: int = 16) -> Optimizer:
     """Adafactor (Shazeer & Stern 2018) without momentum, factored v only,
-    on each reference leaf as a whole (its layers stacked)."""
+    on each reference leaf as a whole (its layers stacked).
+
+    The update runs over slices of each leaf (``SLICE_ELEMS``), since a
+    leaf may be most of the card: grok-1's expert w1 at one layer is
+    (1, 8, 6144, 32768), 6.4 GB in fp32 a copy.  The factored statistics
+    are means over a matrix's rows and columns, so each slice of whole
+    matrices updates its own; the update's RMS spans the leaf, so u is
+    kept whole (one fp32 copy) for it, and the parameters are updated
+    after it in slices of ``SLICE_ELEMS`` elements.  Each element takes the
+    same operations as on the leaf whole."""
     lr_fn = _lr_fn(lr)
 
     def _factored(shape) -> bool:
@@ -204,6 +243,34 @@ def adafactor(lr: Callable | float = 1e-3, decay: float = 0.8, eps: float = 1e-3
             tree_set(stats, leaf.path, st)
         return {"stats": stats}
 
+    def leaf_u(pieces: list, factored: bool, beta: torch.Tensor) -> torch.Tensor:
+        """The leaf's u = g / rms, piece by piece and slice by slice,
+        updating the statistics in place: (pieces, rows, *inner) fp32, the
+        update's one allocation the size of the leaf."""
+        shape, cuts = _slices(tuple(pieces[0][0].shape), factored)
+        u = torch.empty((len(pieces), *shape), dtype=torch.float32, device=pieces[0][0].device)
+        for i, (_, g, st) in enumerate(pieces):
+            g = g.reshape(shape)
+            if factored:
+                vr, vc = st["vr"].reshape(shape[:2]), st["vc"].reshape(shape[0], shape[2])
+            else:
+                v = st["v"].reshape(shape)
+            for cut in cuts:
+                # u's slice holds g^2 + eps, then rms, then u
+                g32, ui = g[cut].float(), u[i, cut]
+                g2 = torch.square(g32, out=ui).add_(eps)
+                if factored:
+                    vr[cut] = beta * vr[cut] + (1 - beta) * g2.mean(dim=-1)
+                    vc[cut] = beta * vc[cut] + (1 - beta) * g2.mean(dim=-2)
+                    denom = torch.clamp(vr[cut].mean(dim=-1, keepdim=True), min=eps)
+                    torch.mul((vr[cut] / denom).unsqueeze(-1), vc[cut].unsqueeze(-2), out=ui)
+                    ui.sqrt_()
+                else:
+                    v[cut] = beta * v[cut] + (1 - beta) * g2
+                    torch.sqrt(v[cut], out=ui)
+                torch.div(g32, ui.clamp_(min=1e-12), out=ui)
+        return u
+
     def update(grads: list, state: dict, leaves: list, step) -> dict:
         dev = leaves[0].tensors[0].device
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
@@ -214,26 +281,24 @@ def adafactor(lr: Callable | float = 1e-3, decay: float = 0.8, eps: float = 1e-3
         with torch.no_grad():
             for leaf, gs in zip(leaves, grads):
                 st = tree_get(state["stats"], leaf.path)
-                g32 = torch.stack([g.float() for g in gs]) if leaf.stacked else gs[0].float()
-                g2 = torch.square(g32) + eps
-                if "vr" in st:
-                    r, c = _factored_dims(leaf.shape)
-                    st["vr"].copy_(beta * st["vr"] + (1 - beta) * g2.mean(dim=c))
-                    st["vc"].copy_(beta * st["vc"] + (1 - beta) * g2.mean(dim=r))
-                    denom = torch.clamp(st["vr"].mean(dim=-1, keepdim=True), min=eps)
-                    rms = torch.sqrt((st["vr"] / denom).unsqueeze(c) * st["vc"].unsqueeze(r))
-                else:
-                    st["v"].copy_(beta * st["v"] + (1 - beta) * g2)
-                    rms = torch.sqrt(st["v"])
-                del g2
-                u = g32 / torch.clamp(rms, min=1e-12)
-                del rms
+                factored = "vr" in st
+                pieces = _pieces(leaf, gs, st)
+                u = leaf_u(pieces, factored, beta)
                 u_rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
-                u = u / torch.clamp(u_rms, min=1.0)
-                p32 = leaf.stack()
-                new = p32 - (lr_t * u + lr_t * weight_decay * p32)
-                for j, p in enumerate(leaf.tensors):
-                    p.copy_(new[j] if leaf.stacked else new)
+                u.div_(torch.clamp(u_rms, min=1.0))
+                # p - (lr u + lr wd p), elementwise in slices of SLICE_ELEMS
+                # elements, u's in place
+                _, cuts = _slices((u[0].numel(),), False)
+                wd_t = lr_t * weight_decay
+                for i, (p, _, _) in enumerate(pieces):
+                    flat, ui = p.view(-1), u[i].view(-1)
+                    for cut in cuts:
+                        p32 = flat[cut].float()
+                        step_ = ui[cut].mul_(lr_t).add_(p32 * wd_t)
+                        flat[cut] = p32.sub_(step_)
+                if leaf.stacked and len(leaf.shape) == 2:
+                    for j, p in enumerate(leaf.tensors):
+                        p.copy_(pieces[0][0][j])
         return {"grad_norm": gnorm, "lr": lr_t}
 
     return Optimizer(init=init, update=update, name="adafactor")

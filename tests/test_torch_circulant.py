@@ -80,9 +80,17 @@ def test_engine_resolution_and_validation(monkeypatch):
 def test_large_search_hillclimb_prices_on_its_device():
     """At n >= 4096 with no pinned offsets, ``large_search`` runs the
     hillclimb with the torch pricer on its device: the reference's
-    trajectory."""
+    trajectory.  The torch pricer runs on one intra-op thread here: its
+    many small CPU ops take about 2 s on one, and minutes when the
+    suite's parallel workers leave each op's thread pool waiting on
+    cores."""
     kw = dict(seed=1, budget=20, polish=False)
-    got = search.large_search(4096, 4, device="cpu", **kw)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = search.large_search(4096, 4, device="cpu", **kw)
+    finally:
+        torch.set_num_threads(threads)
     want = ref_search.large_search(4096, 4, **kw)
     assert got.graph.edges == want.graph.edges
     for f in TRAJECTORY:

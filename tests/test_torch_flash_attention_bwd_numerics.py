@@ -102,7 +102,9 @@ def test_bf16_numerics_match_plain(case):
 # the bf16 shapes chip_smoke.py phase 30 runs: (b, h, kv, sq, skv, hd)
 PHASE30_BF16 = [(4, 64, 8, 1024, 1024, 128), (8, 6, 6, 1500, 1500, 64), (8, 6, 6, 448, 448, 64),
                 (8, 6, 6, 448, 1500, 64), (2, 8, 2, 200, 328, 128), (1, 4, 4, 77, 205, 80),
-                (2, 4, 2, 19, 19, 16), (2, 6, 2, 128, 256, 112)]
+                (2, 4, 2, 19, 19, 16), (2, 6, 2, 128, 256, 112), (8, 32, 32, 1024, 1024, 80),
+                (1, 48, 8, 1024, 1024, 128), (1, 64, 8, 1024, 1024, 112),
+                (8, 12, 2, 1088, 1088, 128), (8, 48, 12, 1024, 1024, 128)]
 
 
 def _model_layout(b, h, kv, sq, skv, hd, pad=0):
