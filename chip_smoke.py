@@ -32,7 +32,7 @@ Phases, in order; any failure raises and exits non-zero:
    the largest sums, unaligned tensors; checked, not timed), each with the
    instantiation ``patch_plan`` gave it;
 5. the main path, ``large_search(8192, 8, replicas=8, proposal_batch=4,
-   polish_iters=16)`` on the card, with both kernels' launches counted (the
+   polish_iters=8)`` on the card, with both kernels' launches counted (the
    sweep's also by (b, sw_pad), the patch's by (b, mmax)) and the result
    rechecked; then a short delta=False run, which must follow the same
    trajectory as delta=True over the same iterations;
@@ -104,7 +104,8 @@ Phases, in order; any failure raises and exits non-zero:
     to its plain version, to the pinned total hops and diameter, to
     ``bisection_width`` and to ``certify``; ``exhaustive_search(12, 3)``;
     ``sa_search(16, 4)`` and ``sa_search(32, 4)`` (seed 0, 4000 iterations,
-    4 replicas; host seconds), which must reach the paper's MPL (<= 1.75 and
+    4 replicas, through the host C fast path's ``sa_chunk``; host seconds),
+    which must reach the paper's MPL (<= 1.75 and
     <= 2.36) and equal the reference's (1.75 and 2.3548387...), their graphs
     rechecked on the card;
 20. ``metrics.apsp_hops`` of phase 7's (8192, 8) graph on the card (all
@@ -264,12 +265,28 @@ Phases, in order; any failure raises and exits non-zero:
     depth 2 (1024 image embeddings, distinct M-RoPE streams) and
     phi3-medium-14b at depth 1, each with wq and wk at fan-in d_model;
 42. zamba2-2.7b's restart at depth 12 (two stages: the shared block and
-    the attention backward twice), bit for bit.
+    the attention backward twice), bit for bit;
+43. the SA tier's host C fast path (``core/_fastpath.py``, built by the
+    host's ``cc``): ``sa_search`` at (16, 4), (32, 4) and (64, 4), 4000
+    iterations, replicas 1 and 4, through the C ``sa_chunk`` and through
+    the python mirror ``_sa_chunk_py``, every field equal, both timed (one
+    line with the card's name and power limit);
+44. the slice's path on the card: ``examples/torch_quickstart.py`` and
+    ``examples/torch_topology_sweep.py --nodes 64`` (their lines equal to
+    the reference examples', pinned by sha256), ``examples/torch_serve_demo.py
+    --arch qwen3-32b --temperature 0`` in bf16 (its stats line, every
+    request's tokens), its serving loop in float32 on the card and on the
+    CPU from the same weights (equal greedy tokens), the reduced mamba2 and
+    zamba2 refused by the bf16 SSD kernel's domain check before any launch,
+    and ``benchmarks/torch_bench_search.py --smoke`` without
+    ``polish_n8192_k8``; both BFS kernels' and the attention kernel's
+    launches counted.
 
 It prints one ``{"kernels": [...]}`` JSON line (per kernel: launches on the
-main paths (the BFS kernels: phases 5, 7, 19, 20, 21, 22, 23 and 24; the
-model kernels: phases 13, 15, 17, 25-28, 40 and the training phases 31-42,
-where the attention and SSD backward kernels launch),
+main paths (the BFS kernels: phases 5, 7, 19, 20, 21, 22, 23, 24 and 44;
+the model kernels: phases 13, 15, 17, 25-28, 40, 44 (attention) and the
+training phases 31-42, where the attention and SSD backward kernels
+launch),
 the largest difference from the plain version, kernel, plain and library
 times from CUDA events around a run of calls, and the least time the card
 could take), then the
@@ -840,7 +857,7 @@ def recheck(res, n: int, k: int, fold: int, warm: float) -> None:
 
 
 def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
-               proposal_batch: int = 4, polish_iters: int = 16) -> dict:
+               proposal_batch: int = 4, polish_iters: int = 8) -> dict:
     import torch
 
     from repro_torch.core.engines import cuda_sweep
@@ -894,10 +911,10 @@ def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
     recheck(res, n, k, fold, warm)
 
     # delta=False (sharded_rows_totals) follows the delta=True trajectory;
-    # the two pricings are timed in turns (full, delta, delta, full)
+    # the two pricings are timed once each
     walls = {False: [], True: []}
     runs = {}
-    for delta in (False, True, True, False):
+    for delta in (False, True):
         t0 = time.perf_counter()
         r = large_search(n, k, polish_iters=2, delta=delta, device=DEV, **kw)
         walls[delta].append(time.perf_counter() - t0)
@@ -905,9 +922,8 @@ def phase_main(n: int = 8192, k: int = 8, fold: int = 4, replicas: int = 8,
     check(runs[False] == runs[True], "delta=False and delta=True trajectories differ")
     log(f"    2 iterations: delta=False {walls[False]} s, delta=True {walls[True]} s, "
         f"same trajectory (mpl={float(runs[True][1])!r}, accepted={runs[True][4]})")
-    for delta in (False, True):
-        profile_run(lambda: large_search(n, k, polish_iters=2, delta=delta,
-                                         device=DEV, **kw), f"2 iterations, delta={delta}")
+    profile_run(lambda: large_search(n, k, polish_iters=2, delta=True, device=DEV, **kw),
+                "2 iterations, delta=True")
     return launches
 
 
@@ -996,7 +1012,7 @@ def profile_run(fn, label: str, top: int = 6, ranges: dict | None = None,
 def phase_card_vs_cpu() -> None:
     from repro_torch.core.search import large_search
 
-    kw = dict(seed=0, fold=4, replicas=4, proposal_batch=2, polish_iters=8)
+    kw = dict(seed=0, fold=4, replicas=4, proposal_batch=2, polish_iters=4)
     t0 = time.perf_counter()
     a = large_search(2048, 6, device=DEV, **kw)
     t_gpu = time.perf_counter() - t0
@@ -1161,9 +1177,10 @@ def _apsp_on_card(g, metrics) -> np.ndarray:
 def phase_table1() -> dict:
     """Table 1 and Algorithm 1 on the card's machine: the golden rows through
     ``apsp`` on the card, ``bisection_width`` and ``certify``;
-    ``exhaustive_search(12, 3)``; ``sa_search`` at (16, 4) and (32, 4), its
-    graphs rechecked on the card.  Returns both BFS kernels' launches."""
-    from repro_torch.core import certify, graphs, metrics, search
+    ``exhaustive_search(12, 3)``; ``sa_search`` at (16, 4) and (32, 4)
+    through the host C fast path, its graphs rechecked on the card.  Returns
+    both BFS kernels' launches."""
+    from repro_torch.core import _fastpath, certify, graphs, metrics, search
     from repro_torch.kernels import bfs_sweep as bs
 
     log("[19] Table 1 and Algorithm 1: golden rows through apsp on the card, "
@@ -1198,10 +1215,24 @@ def phase_table1() -> dict:
     log(f"    exhaustive_search(12, 3): {ex.iterations} candidates in {t_ex:.2f} s (host), "
         f"mpl {float(ex.mpl)!r} = its Cerf bound, diameter {ex.diameter}")
 
+    chunks = []
+    sa_chunk = _fastpath.sa_chunk
+    _fastpath.library()  # built once, outside the timers
+
+    def counted(**kw):
+        chunks.append(kw["chunk_iters"])
+        return sa_chunk(**kw)
+
     for (n, k), limit, ref_mpl in TABLE1_SA:
-        t0 = time.perf_counter()
-        res = search.sa_search(n, k, seed=0, n_iter=4000, replicas=4)
-        secs = time.perf_counter() - t0
+        chunks.clear()
+        _fastpath.sa_chunk = counted
+        try:
+            t0 = time.perf_counter()
+            res = search.sa_search(n, k, seed=0, n_iter=4000, replicas=4)
+            secs = time.perf_counter() - t0
+        finally:
+            _fastpath.sa_chunk = sa_chunk
+        check(len(chunks) > 0, f"sa_search({n}, {k}) did not run the C sa_chunk")
         g = res.graph
         d = _apsp_on_card(g, metrics)
         ring_edges = {(min(i, (i + 1) % n), max(i, (i + 1) % n)) for i in range(n)}
@@ -1212,8 +1243,9 @@ def phase_table1() -> dict:
         check(res.mpl <= limit + 1e-9 and res.mpl == ref_mpl,
               f"sa_search({n}, {k}): mpl {res.mpl!r}, the paper's <= {limit}, "
               f"the reference's {ref_mpl!r}")
-        log(f"    sa_search({n}, {k}, seed=0, n_iter=4000, replicas=4): {secs:.2f} s on the "
-            f"host; mpl {res.mpl!r} (<= {limit}, equal to the reference's), Cerf bound "
+        log(f"    sa_search({n}, {k}, seed=0, n_iter=4000, replicas=4): {secs:.4f} s on the "
+            f"host through {len(chunks)} C sa_chunk calls; mpl {res.mpl!r} (<= {limit}, "
+            f"equal to the reference's), Cerf bound "
             f"{res.mpl_lb!r}, diameter {res.diameter}, accepted {res.accepted}, "
             f"evals_delta {res.evals_delta}, evals_full {res.evals_full}")
     launches, shapes, _ = _search_counts()
@@ -1957,8 +1989,8 @@ def phase_symmetric_card_vs_cpu() -> None:
                                          symmetric_sa_search)
 
     cases = [
-        ("large_search(2048, 6, seed=0, fold=4, polish_iters=40)",
-         lambda dev: large_search(2048, 6, seed=0, fold=4, polish_iters=40, device=dev)),
+        ("large_search(2048, 6, seed=0, fold=4, polish_iters=20)",
+         lambda dev: large_search(2048, 6, seed=0, fold=4, polish_iters=20, device=dev)),
         ("symmetric_sa_search(64, 6, seed=0, n_iter=800, fold=4, compound moves)",
          lambda dev: symmetric_sa_search(64, 6, seed=0, n_iter=800, fold=4, t_start=1e-6,
                                          t_end=1e-9, start_offsets=(1, 9, 23),
@@ -2039,7 +2071,7 @@ def phase_symmetric_card_vs_cpu() -> None:
 
 
 def phase_circulant(n: int = 8192, k: int = 8, seed: int = 1, n_iter: int = 400,
-                    polish_iters: int = 100) -> None:
+                    polish_iters: int = 50) -> None:
     """The batched circulant pricer on the card against the numpy pricer,
     then the default large-N call with no pinned offsets end to end."""
     import torch
@@ -2047,7 +2079,7 @@ def phase_circulant(n: int = 8192, k: int = 8, seed: int = 1, n_iter: int = 400,
     from repro_torch.core.search import circulant_search, large_search
 
     runs, walls = {}, {}
-    for engine in ("torch", "numpy", "numpy", "torch"):
+    for engine in ("torch", "numpy"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = circulant_search(n, k, seed=seed, n_iter=n_iter, engine=engine, device=DEV)
@@ -4038,6 +4070,191 @@ def _ssd_bwd_plain_gap(cfg, steps: int, seq: int, batch: int, tol: float) -> Non
           f"{cfg.name}: the SSD backward kernel's step 0 differs from the plain backward's")
 
 
+# phase 43: the SA tier's sizes, each at 4000 iterations and replicas 1 and 4
+SA_C_CASES = ((16, 4), (32, 4), (64, 4))
+# phase 44: sha256 of the reference examples' output lines ("\n".join), from
+# the JAX package's examples/quickstart.py and examples/topology_sweep.py
+# (--nodes 64), which the port's print line for line
+EXAMPLE_SHA = {
+    "torch_quickstart": (10, "ced66e97627a68e414909ca63f4ed09568f3197fdc7a793571af38a0938ece4f"),
+    "torch_topology_sweep": (8, "aa55b8703c95377505fe751f5c67d258f8222f7a746d24e16c0c98790e401a14"),
+}
+# phase 44: benchmarks/torch_bench_search.py --smoke without polish_n8192_k8
+# (its dense host baseline prices 512 sources a proposal, about a minute)
+BENCH_SMOKE_ONLY = ("sa_", "warmstart_", "circulant_", "polish_n2048_k6", "polish_n8192_k8_",
+                    "fig4_schedule")
+
+
+def _sa_fields(res) -> tuple:
+    """Every field of a ``SearchResult``, the graph as its edges."""
+    import dataclasses
+
+    return tuple((f.name, (res.graph.n, res.graph.edges, res.graph.name) if f.name == "graph"
+                  else getattr(res, f.name)) for f in dataclasses.fields(res))
+
+
+def phase_sa_c_path(smi: str) -> list[dict]:
+    """The SA tier's host C fast path on the card's host: ``sa_search`` at
+    ``SA_C_CASES``, 4000 iterations, replicas 1 and 4, once through the C
+    ``sa_chunk`` and once through the python mirror ``_sa_chunk_py`` over
+    the same draws; every field equal; both timed.  Returns the rows."""
+    import functools
+
+    from repro_torch.core import _fastpath, search
+
+    log("[43] the SA tier's C fast path on the host: sa_search through the C sa_chunk "
+        "against the python mirror _sa_chunk_py")
+    t0 = time.perf_counter()
+    _fastpath.library()
+    log(f"    {_fastpath.build().name} built and loaded in {time.perf_counter() - t0:.2f} s "
+        f"(cc {' '.join(_fastpath.FLAGS)})")
+    rows = []
+    orig = search._run_chunk
+    for n, k in SA_C_CASES:
+        for replicas in (1, 4):
+            kw = dict(seed=0, n_iter=4000, replicas=replicas)
+            t0 = time.perf_counter()
+            res = search.sa_search(n, k, **kw)
+            c_s = time.perf_counter() - t0
+            search._run_chunk = functools.partial(orig, plain=True)
+            try:
+                t0 = time.perf_counter()
+                plain = search.sa_search(n, k, **kw)
+                plain_s = time.perf_counter() - t0
+            finally:
+                search._run_chunk = orig
+            check(_sa_fields(res) == _sa_fields(plain),
+                  f"sa_search({n}, {k}, replicas={replicas}): the C path and the mirror differ")
+            rows.append({"n": n, "k": k, "replicas": replicas, "iters": 4000, "c_s": c_s,
+                         "plain_s": plain_s, "speedup": plain_s / c_s, "mpl": res.mpl,
+                         "accepted": res.accepted, "evals_delta": res.evals_delta,
+                         "evals_full": res.evals_full})
+            log(f"    sa_search({n}, {k}, seed=0, n_iter=4000, replicas={replicas}): C "
+                f"{c_s:.4f} s, mirror {plain_s:.4f} s ({plain_s / c_s:.1f}x); every field "
+                f"equal (mpl {res.mpl!r}, accepted {res.accepted}, evals_delta "
+                f"{res.evals_delta}, evals_full {res.evals_full})")
+    log(f"[43] SA tier host seconds on the host of {smi}: {json.dumps(rows)}")
+    return rows
+
+
+def _example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(HERE, "examples",
+                                                                     f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_example(mod, argv: list[str]) -> tuple[list[str], float]:
+    """``mod.main(argv)`` in this process: its output lines and host seconds."""
+    import io
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        mod.main(argv)
+    return out.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def phase_examples() -> dict:
+    """The slice's path on the card: the three examples (``examples/torch_*.py``
+    on ``--device cuda``), the serving loop in float32 card == CPU, a reduced
+    ssm and hybrid config refused by the bf16 SSD kernel's domain check, and
+    ``benchmarks/torch_bench_search.py --smoke`` without ``polish_n8192_k8``.
+    Returns the BFS and attention kernels' launches in this phase."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    from benchmarks import torch_bench_search
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models import build_model
+
+    log("[44] the examples and the search benchmark's smoke rows on the card")
+    _reset_search_counts()
+    _reset_model_counts()
+    for name, argv in (("torch_quickstart", []), ("torch_topology_sweep", ["--nodes", "64"])):
+        lines, secs = _run_example(_example(name), argv + ["--device", DEV])
+        count, sha = EXAMPLE_SHA[name]
+        got = hashlib.sha256("\n".join(lines).encode()).hexdigest()
+        check(len(lines) == count and got == sha,
+              f"{name}: {len(lines)} lines, sha {got}; the reference example's {count}, {sha}")
+        log(f"    examples/{name}.py {' '.join(argv)} --device {DEV}: {len(lines)} lines in "
+            f"{secs:.2f} s (host clock), equal to the reference example's")
+        for line in lines:
+            log(f"      | {line}")
+
+    serve = _example("torch_serve_demo")
+    lines, secs = _run_example(serve, ["--arch", "qwen3-32b", "--temperature", "0",
+                                       "--device", DEV])
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, 6).astype(np.int32).tolist() for _ in range(8)]
+    reqs = [re.fullmatch(r"req (\d+): prompt (\[[\d, ]*\]) -> (\[[\d, ]*\])", ln)
+            for ln in lines if ln.startswith("req ")]
+    check(len(reqs) == 4 and all(m and json.loads(m.group(2)) == prompts[int(m.group(1))]
+                                 and len(json.loads(m.group(3))) == 16 for m in reqs),
+          f"torch_serve_demo: request lines {lines[:-2]}")
+    check(re.fullmatch(r"8 requests, 128 tokens \| TTFT \d+ ms \| [\d.]+ tok/s", lines[-1])
+          is not None, f"torch_serve_demo: stats line {lines[-1]!r}")
+    log(f"    examples/torch_serve_demo.py --arch qwen3-32b --temperature 0 --device {DEV} "
+        f"(bf16, flash_attention_kernel at head dim 16): {secs:.2f} s; every request got its "
+        f"16 tokens")
+    for line in lines:
+        log(f"      | {line}")
+
+    cfg = dataclasses.replace(reduced_config(get_config("qwen3-32b")), dtype="float32")
+    card_model, cpu_model = build_model(cfg, device=DEV), build_model(cfg, device="cpu")
+    card_params = card_model.init(0)
+    cpu_params = cpu_model.init(1)
+    cpu_params.load_state_dict({k: v.cpu() for k, v in card_params.state_dict().items()})
+    card_done, _ = serve.serve(card_model, card_params, temperature=0.0, out=lambda s: None)
+    cpu_done, _ = serve.serve(cpu_model, cpu_params, temperature=0.0, out=lambda s: None)
+    card_tokens = {r.rid: r.out_tokens for r in card_done}
+    check(card_tokens == {r.rid: r.out_tokens for r in cpu_done} and len(card_tokens) == 8,
+          "torch_serve_demo's loop in float32: the card's greedy tokens differ from the CPU's")
+    log("    its serving loop in float32 from the same weights: the card's greedy tokens "
+        "equal the CPU's, 8 requests x 16")
+
+    for arch in ("mamba2-2.7b", "zamba2-2.7b"):
+        before = ssd_scan.ssd_intra_chunk.launches
+        try:
+            _run_example(serve, ["--arch", arch, "--requests", "4", "--device", DEV])
+            refused = None
+        except ValueError as exc:
+            refused = str(exc)
+        check(refused is not None and "ssd_intra_chunk_kernel takes bf16" in refused
+              and ssd_scan.ssd_intra_chunk.launches == before,
+              f"torch_serve_demo --arch {arch}: expected the bf16 SSD domain error, got "
+              f"{refused!r}")
+        log(f"    torch_serve_demo --arch {arch} (reduced: SSD chunk 8, head dim 8) refused "
+            f"before any SSD launch: {refused}")
+
+    t0 = time.perf_counter()
+    rows = torch_bench_search.run(smoke=True, device=DEV, only=BENCH_SMOKE_ONLY)
+    secs = time.perf_counter() - t0
+    want = [r for r in torch_bench_search.row_names(smoke=True) if r != "polish_n8192_k8"]
+    check([r["name"] for r in rows.results] == want,
+          f"torch_bench_search --smoke rows {[r['name'] for r in rows.results]}, want {want}")
+    check(rows.meta["machine"]["c_kernel"], "torch_bench_search: the C fast path not built")
+    log(f"    benchmarks/torch_bench_search.py --smoke (without polish_n8192_k8) on {DEV}: "
+        f"{len(rows.results)} rows in {secs:.2f} s; each pair on one trajectory has "
+        f"engine_mpl == mpl")
+    for name, us, derived in rows.rows:
+        log(f"      {name},{us:.3f},{derived}")
+    torch.cuda.synchronize()
+    launches, shapes, patch_shapes = _search_counts()
+    launches["flash_attention_kernel"] = _model_counts()["flash_attention_kernel"]
+    log(f"    launches in phase 44: {launches}; bfs_sweep_kernel by (b, sw_pad) {shapes}, "
+        f"minplus_patch_kernel by (b, mmax) {patch_shapes}")
+    check(all(launches.values()), f"phase 44 launched a kernel of its path no time: {launches}")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -4061,18 +4278,23 @@ def main() -> int:
 
     smi = phase_device()
     phase_build()
+    elapsed("1-2")
     kernels = [phase_sweep(), phase_patch()]
+    elapsed("3-4")
     launches = phase_main()
+    elapsed("5")
     phase_card_vs_cpu()
     # the BFS kernels' launches on both search paths: the replica polish
     # (phase 5) and the default replicas=1 polish (phase 7)
     sym, sym_res = phase_symmetric()
     log(f"    launches on the main paths: replica polish {launches}, symmetric polish {sym}")
     launches = {name: launches[name] + sym[name] for name in launches}
+    elapsed("6-7")
     phase_symmetric_pinned()
     phase_symmetric_card_vs_cpu()
+    elapsed("8-9")
     phase_circulant()
-    elapsed("1-10")
+    elapsed("10")
     kernels += [phase_flash(), phase_ssd()]
     elapsed("11-12")
     # the model kernels' launches on the three serving paths
@@ -4087,8 +4309,10 @@ def main() -> int:
     elapsed("17-18")
     # the BFS kernels' launches on the invariants' paths: Table 1 (phase 19)
     # and the whole-graph check of phase 7's graph (phase 20)
-    invariants = [phase_table1(), phase_whole_graph(sym_res)]
-    elapsed("19-20")
+    invariants = [phase_table1()]
+    elapsed("19")
+    invariants.append(phase_whole_graph(sym_res))
+    elapsed("20")
     # and on the paper's 256-node suite (phase 21): its four searched builds
     # and every graph's stats
     suite, g8 = phase_suite256()
@@ -4156,6 +4380,12 @@ def main() -> int:
     elapsed("41")
     trained.append(phase_restart("zamba2-2.7b", 42, depth=12))
     elapsed("42")
+    # the SA tier's host C fast path (43), then the examples and the search
+    # benchmark's smoke rows on the card (44)
+    phase_sa_c_path(smi)
+    elapsed("43")
+    examples = phase_examples()
+    elapsed("44")
     log(f"    launches on the invariants' paths: Table 1 {invariants[0]}, "
         f"whole graph {invariants[1]}, 256-node suite {invariants[2]}, "
         f"layout and remesh {invariants[3]}, collectives {invariants[4]}, "
@@ -4174,6 +4404,9 @@ def main() -> int:
         f"{trained[13]}, zamba2's restart {trained[14]}")
     for name in trained[0]:
         launches[name] = launches.get(name, 0) + sum(run[name] for run in trained)
+    log(f"    launches on the examples' and the search benchmark's paths: {examples}")
+    for name, count in examples.items():
+        launches[name] += count
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -12,8 +12,9 @@ PyTorch version.
 On the host, numpy copies of the reference's, unchanged: ``_nbr_table``,
 ``_parent_counts``, ``_parent_count_cols``, ``_removal_affected``,
 ``_removal_affected_nbr``, ``_bfs_rows``, ``IncrementalAPSP`` (the dense
-evaluator of ``sa_search``, its numpy path: the reference's C fast path has
-no counterpart), ``girth``, ``bisection_width`` (Kernighan–Lin from the
+evaluator of ``sa_search``, through the host C fast path ``_fastpath`` as
+in the reference, its numpy path kept as ``_evaluate_swap_plain``),
+``girth``, ``bisection_width`` (Kernighan–Lin from the
 reference's seeded starts), ``edge_betweenness_proxy`` (through
 ``routing.RoutingTable``) and the Cerf et al. lower bounds.  The batched
 lost-parent removal test runs on the host, against each replica chain's
@@ -30,6 +31,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import bfs_sweep
+from . import _fastpath
 from .engines.cuda_sweep import _check_int32_sums
 from .graphs import Graph
 from .routing import RoutingTable
@@ -277,7 +279,7 @@ class SwapToken:
 
 class IncrementalAPSP:
     """Dense APSP state maintained under 2-edge swaps by delta evaluation
-    (the reference's ``IncrementalAPSP``, its numpy path).
+    (the reference's ``IncrementalAPSP`` on its C path).
 
     The evaluator keeps the current boolean adjacency, the int32 hop-distance
     matrix (sentinel ``n`` for unreachable) and the BFS-DAG parent-count
@@ -286,23 +288,28 @@ class IncrementalAPSP:
     1. *Removals*: source ``s`` is affected by deleting edge (a, b) iff the
        edge is the sole DAG-parent edge of one endpoint (exact — if an
        endpoint keeps a parent, every vertex keeps a parent and all old
-       distances stay achievable).  Distances are repaired by batched BFS
-       from only the affected sources; unaffected rows (and, by symmetry,
-       columns) are provably unchanged.
+       distances stay achievable).  Distances are repaired from only the
+       affected sources; unaffected rows (and, by symmetry, columns) are
+       provably unchanged.
     2. *Additions*: the exact unweighted edge-insert formula
        ``d'(x, y) = min(d(x, y), d(x, u) + 1 + d(v, y), d(x, v) + 1 + d(u, y))``
-       applied per added edge — vectorized O(n^2), no BFS.
+       applied per added edge.
 
     When more than ``full_rebuild_frac`` (0.9, the reference's default) of
     the sources are affected (or ``force_full`` is set, or the base state is
-    disconnected) the evaluator
-    falls back to a from-scratch batched BFS; ``n_delta`` / ``n_full`` count
-    both paths as the reference's do.  The reference's C fast path
-    (``use_c``) has no counterpart: this is the path it is held equal to.
+    disconnected) the evaluator rebuilds every row; ``n_delta`` /
+    ``n_full`` count both paths as the reference's do.
 
-    The state is tens of kilobytes at the n <= 64 where ``sa_search`` runs
-    it, and a proposal costs microseconds, below one kernel launch, so it
-    stays on the host.  All updates are written in place.
+    As in the reference, the distance rows and parent counts (at
+    construction, ``reset`` and ``commit``) and a 2-out/2-in swap with four
+    distinct endpoints go through the host C fast path (``_fastpath``:
+    ``apsp_rows``, ``parent_counts``, ``eval_swap``, built at first use;
+    a failed build raises).  Other shapes (batched changes, edges sharing
+    a vertex) take the numpy evaluator, ``_evaluate_swap_plain``, which is
+    also the plain version the C path is held to.  The state is tens of
+    kilobytes at the n <= 64 where ``sa_search`` runs it, and a proposal
+    costs microseconds, below one kernel launch, so it stays on the host.
+    All updates are written in place.
     """
 
     full_rebuild_frac = 0.9
@@ -315,9 +322,15 @@ class IncrementalAPSP:
         # bool input is adopted as the live buffer (mutated in place)
         self.adj = adj if adj.dtype == np.bool_ else adj.astype(bool)
         self.a32 = self.adj.astype(np.float32)
+        # zero-init required: the C kernel epoch-stamps part of this buffer
+        self._scratch = np.zeros(8 * n, dtype=np.int32)
+        self._rem_buf = np.empty(4, dtype=np.int32)
+        self._add_buf = np.empty(4, dtype=np.int32)
         self.nbr = _nbr_table(self.adj)
-        self.dist = _bfs_rows(self.a32, np.arange(n), n)
-        self.npar = _parent_counts(self.adj, self.dist, self.nbr)
+        self.dist = np.empty((n, n), dtype=np.int32)
+        self.npar = np.empty((n, n), dtype=np.int16)
+        _fastpath.apsp_rows(self.nbr, self.dist, self._scratch)
+        _fastpath.parent_counts(self.nbr, self.dist, self.npar)
         self.total = int(self.dist.sum(dtype=np.int64))
         self.diam = int(self.dist.max())
         self.n_delta = 0
@@ -351,6 +364,12 @@ class IncrementalAPSP:
             self.adj[u, v] = self.adj[v, u] = on
             self.a32[u, v] = self.a32[v, u] = float(on)
 
+    def _check_swap(self, removed, added) -> None:
+        if not all(self.adj[u, v] for u, v in removed):
+            raise ValueError("a removed edge is not in the graph")
+        if any(self.adj[u, v] for u, v in added):
+            raise ValueError("an added edge is already in the graph")
+
     def evaluate_swap(self, removed: list[tuple[int, int]],
                       added: list[tuple[int, int]]) -> SwapToken:
         """Price the swap; returns a token (``commit`` applies it) with the
@@ -359,14 +378,40 @@ class IncrementalAPSP:
         Removed edges must exist and added edges must not.  The edge lists
         may be arbitrarily long and may share vertices (batched multi-edge
         changes): the removal test counts lost parent edges per vertex
-        exactly.  The reference's ``want_diameter`` switch (its C path may
-        defer the diameter) has no counterpart.
+        exactly.  A 2-out/2-in swap with four distinct endpoints is priced by
+        the C ``eval_swap`` (its removal test treats each removed edge on its
+        own, exact only when they share no vertex), every other shape by
+        ``_evaluate_swap_plain``, as in the reference.  The reference's
+        ``want_diameter`` switch (its C path may defer the diameter) has no
+        counterpart: the diameter is always priced.
         """
+        if not (len(removed) == 2 and len(added) == 2
+                and len({v for e in removed for v in e}) == 4):
+            return self._evaluate_swap_plain(removed, added)
+        self._check_swap(removed, added)
+        n = self.n
+        (self._rem_buf[0], self._rem_buf[1]), (self._rem_buf[2], self._rem_buf[3]) = removed
+        (self._add_buf[0], self._add_buf[1]), (self._add_buf[2], self._add_buf[3]) = added
+        new = np.empty((n, n), dtype=np.int32)
+        # a disconnected base state invalidates the delta tests: force full
+        naff, total, diam = _fastpath.eval_swap(
+            self.nbr, self.dist, self.npar, self._rem_buf, self._add_buf,
+            self.force_full or not self.connected, self.full_rebuild_frac, True,
+            self.total, new, self._scratch)
+        if naff < 0:
+            self.n_full += 1
+        else:
+            self.n_delta += 1
+        mpl = total / (n * (n - 1)) if diam < self.sentinel else float("inf")
+        return SwapToken(tuple(removed), tuple(added), new, total, diam, mpl)
+
+    def _evaluate_swap_plain(self, removed: list[tuple[int, int]],
+                             added: list[tuple[int, int]]) -> SwapToken:
+        """``evaluate_swap`` in numpy (the reference's numpy path) for any
+        shape of change: the plain version the C ``eval_swap`` is held to,
+        with the same token and the same ``n_delta``/``n_full`` counts."""
         dist, n = self.dist, self.n
-        if not all(self.adj[u, v] for u, v in removed):
-            raise ValueError("a removed edge is not in the graph")
-        if any(self.adj[u, v] for u, v in added):
-            raise ValueError("an added edge is already in the graph")
+        self._check_swap(removed, added)
 
         # exact removal-affected sources (batched lost-parent test); a
         # disconnected base forces the full path, as in the reference
@@ -420,14 +465,14 @@ class IncrementalAPSP:
         self.total = token.total
         self.diam = token.diam
         self._refresh_nbr_rows([x for e in (*token.removed, *token.added) for x in e])
-        self.npar[...] = _parent_counts(self.adj, self.dist, self.nbr)
+        _fastpath.parent_counts(self.nbr, self.dist, self.npar)
 
     def reset(self) -> None:
         """Re-derive all state from the (externally rewritten) adjacency."""
         self.a32[...] = self.adj
         self.nbr = _nbr_table(self.adj)
-        self.dist[...] = _bfs_rows(self.a32, np.arange(self.n), self.sentinel)
-        self.npar[...] = _parent_counts(self.adj, self.dist, self.nbr)
+        _fastpath.apsp_rows(self.nbr, self.dist, self._scratch)
+        _fastpath.parent_counts(self.nbr, self.dist, self.npar)
         self.total = int(self.dist.sum(dtype=np.int64))
         self.diam = int(self.dist.max())
 

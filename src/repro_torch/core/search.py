@@ -8,10 +8,11 @@ Small n, on the host:
 2. ``sa_search``: the paper's Algorithm 1, simulated annealing over
    non-ring 2-edge swaps of a random Hamiltonian regular graph, R replicas
    with periodic best-replica exchange, each swap priced by
-   ``metrics.IncrementalAPSP``; ``sa_objective_search`` anneals an
-   arbitrary objective.  The dense state is tens of kilobytes at the
-   n <= 64 this tier serves and a proposal costs microseconds, below one
-   kernel launch, so these tiers stay numpy.
+   ``metrics.IncrementalAPSP``, the inner loop in the host C fast path
+   (``_fastpath.sa_chunk``) as in the reference; ``sa_objective_search``
+   anneals an arbitrary objective.  The dense state is tens of kilobytes at
+   the n <= 64 this tier serves and a proposal costs microseconds, below
+   one kernel launch, so these tiers stay on the host.
 
 Large n, on the device: ``large_search(n, k)`` runs a circulant warm start
 (a pinned offset set, or the hillclimb ``circulant_search``), then a polish
@@ -49,7 +50,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import metrics
+from . import _fastpath, metrics
 from .engines import cuda_sweep, torch_circulant
 from .graphs import Graph, circulant, from_edges, random_hamiltonian_regular, ring
 from .known_optimal import KNOWN_CIRCULANT_OFFSETS
@@ -204,10 +205,11 @@ class _Replica:
 
     __slots__ = ("ev", "chords", "best_adj", "cur_total", "cur_diam",
                  "best_total", "best_diam", "t", "rng",
-                 "hist_iters", "hist_totals", "hist_io", "accepted")
+                 "hist_iters", "hist_totals", "hist_io", "stats", "newdist")
 
     def __init__(self, adj: np.ndarray, ring_mask: np.ndarray,
                  t_start: float, rng: np.random.Generator, n_iter: int):
+        n = adj.shape[0]
         self.ev = metrics.IncrementalAPSP(adj)
         self.chords = _chord_array(adj, ring_mask)
         self.best_adj = adj.copy()
@@ -219,7 +221,8 @@ class _Replica:
         self.hist_iters = np.empty(cap, dtype=np.int32)
         self.hist_totals = np.empty(cap, dtype=np.int64)
         self.hist_io = np.asarray([cap, 0], dtype=np.int32)
-        self.accepted = 0
+        self.stats = np.zeros(4, dtype=np.int64)  # accepted, delta, full, invalid
+        self.newdist = np.empty((n, n), dtype=np.int32)
 
     def load_best_of(self, other: "_Replica", ring_mask: np.ndarray) -> None:
         """Replica exchange: adopt another chain's best state as current."""
@@ -236,9 +239,11 @@ def _chord_array(adj: np.ndarray, ring_mask: np.ndarray) -> np.ndarray:
 
 def _sa_chunk_py(rep: _Replica, n: int, de1, de2, dorient, du,
                  gamma: float, target_total: int, iter_base: int, norm: float) -> int:
-    """The annealing inner loop over one chunk of pre-drawn randomness: the
-    reference's pure-python mirror of its C ``sa_chunk`` (the same
-    trajectory as either of the reference's paths)."""
+    """The annealing inner loop over one chunk of pre-drawn randomness in
+    python: the reference's mirror of its C ``sa_chunk`` (the same
+    trajectory), pricing each swap through the numpy evaluator
+    (``IncrementalAPSP._evaluate_swap_plain``).  The plain version the C
+    path is held to."""
     ev = rep.ev
     done = 0
     for i in range(len(de1)):
@@ -246,15 +251,18 @@ def _sa_chunk_py(rep: _Replica, n: int, de1, de2, dorient, du,
         done = i + 1
         e1, e2 = int(de1[i]), int(de2[i])
         if e1 == e2:
+            rep.stats[3] += 1
             continue
         a, b = int(rep.chords[e1, 0]), int(rep.chords[e1, 1])
         c, d = int(rep.chords[e2, 0]), int(rep.chords[e2, 1])
         if a == c or a == d or b == c or b == d:
+            rep.stats[3] += 1
             continue
         p1, p2 = ((a, c), (b, d)) if dorient[i] else ((a, d), (b, c))
         if ev.adj[p1] or ev.adj[p2]:
+            rep.stats[3] += 1
             continue
-        tok = ev.evaluate_swap([(a, b), (c, d)], [p1, p2])
+        tok = ev._evaluate_swap_plain([(a, b), (c, d)], [p1, p2])
         if tok.diam >= n:  # disconnected: dm = +inf, always rejected
             continue
         dm = (tok.total - rep.cur_total) / norm
@@ -265,7 +273,7 @@ def _sa_chunk_py(rep: _Replica, n: int, de1, de2, dorient, du,
         rep.chords[e1] = p1
         rep.chords[e2] = p2
         rep.cur_total, rep.cur_diam = tok.total, ev.diam
-        rep.accepted += 1
+        rep.stats[0] += 1
         if (rep.cur_total, rep.cur_diam) < (rep.best_total, rep.best_diam):
             rep.best_total, rep.best_diam = rep.cur_total, rep.cur_diam
             rep.best_adj[...] = ev.adj
@@ -280,12 +288,13 @@ def _sa_chunk_py(rep: _Replica, n: int, de1, de2, dorient, du,
 
 
 def _run_chunk(rep: _Replica, n: int, chunk: int, iter_base: int,
-               gamma: float, target_total: int, norm: float) -> int:
-    """Draw this chunk's randomness from the replica stream and execute it.
+               gamma: float, target_total: int, norm: float, plain: bool = False) -> int:
+    """Draw this chunk's randomness from the replica stream and execute it
+    through the C ``sa_chunk`` (``_fastpath``), as the reference does.
 
-    The draws are the reference's, in its order, whichever of its paths it
-    takes; the loop is always its python mirror (the C ``sa_chunk`` has no
-    counterpart), so the trajectory is the same."""
+    ``plain=True`` runs the python mirror ``_sa_chunk_py`` over the same
+    draws instead (tests and ``chip_smoke.py`` hold the C path to it; no
+    caller of ``sa_search`` selects it)."""
     m_c = max(len(rep.chords), 1)
     ints = rep.rng.integers(0, [m_c, m_c, 2], size=(chunk, 3))
     de1 = np.ascontiguousarray(ints[:, 0], dtype=np.int32)
@@ -294,8 +303,31 @@ def _run_chunk(rep: _Replica, n: int, chunk: int, iter_base: int,
     du = rep.rng.random(chunk)
     if len(rep.chords) < 2:
         return chunk  # no swappable chords (k == 2): pure cooling
-    return _sa_chunk_py(rep, n, de1, de2, dorient, du, gamma, target_total,
-                        iter_base, norm)
+    if plain:
+        return _sa_chunk_py(rep, n, de1, de2, dorient, du, gamma, target_total,
+                            iter_base, norm)
+    ev = rep.ev
+    out = _fastpath.sa_chunk(
+        nbr=ev.nbr, dist=ev.dist, npar=None, adj=ev.adj,
+        best_adj=rep.best_adj, chords=rep.chords,
+        chunk_iters=chunk, iter_base=iter_base,
+        de1=de1, de2=de2, dorient=dorient, du=du,
+        t=rep.t, gamma=gamma, full_frac=ev.full_rebuild_frac,
+        cur_total=rep.cur_total, cur_diam=rep.cur_diam,
+        best_total=rep.best_total, best_diam=rep.best_diam,
+        target_total=target_total,
+        hist_iters=rep.hist_iters, hist_totals=rep.hist_totals,
+        hist_io=rep.hist_io, newdist=rep.newdist,
+        scratch=ev._scratch, stats=rep.stats)
+    rep.t = out["t"]
+    rep.cur_total, rep.cur_diam = out["cur_total"], out["cur_diam"]
+    rep.best_total, rep.best_diam = out["best_total"], out["best_diam"]
+    # the kernel ran with npar=None (parents counted on the fly) and moved
+    # adj, nbr and dist: bring the evaluator's other fields up to date
+    ev.a32[...] = ev.adj
+    _fastpath.parent_counts(ev.nbr, ev.dist, ev.npar)
+    ev.total, ev.diam = rep.cur_total, rep.cur_diam
+    return out["done"]
 
 
 def sa_search(
@@ -319,9 +351,10 @@ def sa_search(
     with the same seed — best-of-R can only improve on it.
 
     Swap pricing is ``metrics.IncrementalAPSP`` delta evaluation on the
-    host, and the inner loop is the reference's python mirror of its C
-    ``sa_chunk``: both of the reference's paths consume the same pre-drawn
-    streams, so every field of the result equals the reference's per seed.
+    host, and the inner loop is the C ``sa_chunk`` of the host fast path
+    (``_fastpath``, built at first use), as in the reference; its python
+    mirror ``_sa_chunk_py`` consumes the same pre-drawn streams, so every
+    field of the result equals the reference's per seed.
     The dense (n, n) state is tens of kilobytes at the n <= 64 this tier
     serves and a proposal costs microseconds, below one kernel launch, so
     the tier stays on the host (the row-restricted device state is
@@ -392,11 +425,11 @@ def sa_search(
         mpl_lb=lb,
         d_lb=metrics.diameter_lower_bound(n, k),
         iterations=n_iter,
-        accepted=sum(rep.accepted for rep in reps),
+        accepted=int(sum(int(rep.stats[0]) for rep in reps)),
         history=history or [best.best_total / norm],
         replicas=replicas,
-        evals_delta=int(sum(rep.ev.n_delta for rep in reps)),
-        evals_full=int(sum(rep.ev.n_full for rep in reps)),
+        evals_delta=int(sum(int(rep.stats[1]) + rep.ev.n_delta for rep in reps)),
+        evals_full=int(sum(int(rep.stats[2]) + rep.ev.n_full for rep in reps)),
     )
 
 

@@ -20,6 +20,9 @@ def _port_files():
     bench = os.path.join(REPO, "benchmarks")
     out += [os.path.join(bench, f) for f in os.listdir(bench)
             if f.startswith("torch_") and f.endswith(".py")]
+    examples = os.path.join(REPO, "examples")
+    out += [os.path.join(examples, f) for f in os.listdir(examples)
+            if f.startswith("torch_") and f.endswith(".py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -42,7 +45,10 @@ def test_port_imports_neither_jax_nor_repro():
             "src/repro_torch/comm/torchcoll.py", "benchmarks/torch_common.py",
             "benchmarks/torch_run.py", "src/repro_torch/optim/optimizers.py",
             "src/repro_torch/data/pipeline.py", "src/repro_torch/checkpoint/ckpt.py",
-            "src/repro_torch/train/trainer.py", "src/repro_torch/launch/train.py"} <= names
+            "src/repro_torch/train/trainer.py", "src/repro_torch/launch/train.py",
+            "src/repro_torch/core/_fastpath.py", "benchmarks/torch_bench_search.py",
+            "examples/torch_quickstart.py", "examples/torch_topology_sweep.py",
+            "examples/torch_serve_demo.py"} <= names
     bad = {(os.path.relpath(p, REPO), mod) for p in files
            for mod in _imported_roots(p) if mod in ("jax", "jaxlib", "repro")}
     assert not bad, f"forbidden imports: {sorted(bad)}"
@@ -58,7 +64,8 @@ def test_importing_port_loads_neither_jax_nor_repro():
             "repro_torch.serve, repro_torch.launch.serve, repro_torch.core.layout, "
             "repro_torch.runtime, repro_torch.comm.torchcoll, benchmarks.torch_run, "
             "repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
-            "repro_torch.train, repro_torch.launch.train; "
+            "repro_torch.train, repro_torch.launch.train, repro_torch.core._fastpath, "
+            "benchmarks.torch_bench_search; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -5,12 +5,12 @@ against the JAX package's, on the CPU.
 
 Both packages draw from the same numpy Generators (``default_rng([seed, r])``
 per replica, each chunk's randomness drawn up front) and accept on exact
-integer hop totals, so every field of the result must be equal.  The port
-always runs the reference's python mirror of its C ``sa_chunk``; the
-reference runs its C kernel where a compiler exists, which follows the same
-trajectory by the reference's own contract.  The evaluator is compared with
-the reference's numpy path (``use_c=False``), token by token and counter by
-counter.
+integer hop totals, so every field of the result must be equal.  Both
+packages run their C ``sa_chunk`` (the port's host C fast path, a copy of
+the reference's source; ``tests/test_torch_fastpath.py`` holds it to the
+python mirror).  The evaluator, whose 2+2 swaps go through the C
+``eval_swap``, is compared with the reference's numpy path (``use_c=False``),
+token by token and counter by counter.
 """
 import numpy as np
 import pytest
