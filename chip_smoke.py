@@ -280,12 +280,21 @@ Phases, in order; any failure raises and exits non-zero:
     zamba2 refused by the bf16 SSD kernel's domain check before any launch,
     and ``benchmarks/torch_bench_search.py --smoke`` without
     ``polish_n8192_k8``; both BFS kernels' and the attention kernel's
-    launches counted.
+    launches counted;
+45. the sharded path (``models/sharding.py``, ``launch/mesh.py``,
+    ``launch/specs.py``, the model on a mesh; ``phase_sharded``): the pod
+    order pinned to the JAX package's, the production mesh refused at
+    world size 1; over NCCL at world size 1, qwen3-32b at full width and
+    depth 2 trained 2 steps as phase 31 on one device and on a (1, 1, 1)
+    mesh (DTensor weights and AdamW state), bit for bit; greedy serving
+    from its weights, equal tokens; its weights restored onto a (1, 1)
+    mesh; kimi-k2-1t-a32b's ep loss bit for bit; the two examples of the
+    slice (``torch_train_lm.py --mesh``, ``torch_elastic_failover.py``).
 
 It prints one ``{"kernels": [...]}`` JSON line (per kernel: launches on the
 main paths (the BFS kernels: phases 5, 7, 19, 20, 21, 22, 23, 24 and 44;
 the model kernels: phases 13, 15, 17, 25-28, 40, 44 (attention) and the
-training phases 31-42, where the attention and SSD backward kernels
+training phases 31-42 and 45, where the attention and SSD backward kernels
 launch),
 the largest difference from the plain version, kernel, plain and library
 times from CUDA events around a run of calls, and the least time the card
@@ -3385,16 +3394,17 @@ def _reset_train_counts() -> None:
 
 
 def _trainer(cfg, steps: int, seq: int, batch: int, ckpt_dir=None, ckpt_every: int = 100,
-             device=None):
+             device=None, mesh=None):
     """A ``Trainer`` as the launcher builds it: the config's optimizer
     through ``make_optimizer(lr=1e-3, total_steps=steps, warmup=1)`` and
-    ``SyntheticLM`` at seed 0."""
+    ``SyntheticLM`` at seed 0; on ``mesh`` if given."""
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.models import build_model
     from repro_torch.optim import make_optimizer
     from repro_torch.train import Trainer
 
-    return Trainer(model=build_model(cfg, device=device),
+    model = build_model(cfg, device=device) if mesh is None else build_model(cfg, mesh=mesh)
+    return Trainer(model=model,
                    opt=make_optimizer(cfg.optimizer, lr=1e-3, total_steps=steps, warmup=1),
                    data=SyntheticLM(cfg, DataConfig(seq_len=seq, global_batch=batch, seed=0)),
                    ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
@@ -3921,8 +3931,6 @@ def phase_train_ssm(arch: str, phase: int, steps: int = 6, seq: int = 1024, batc
     of one more step with the SSD backward's share of it."""
     import torch
 
-    from repro_torch.train import SPAN_GRADS, SPAN_OPTIMIZER
-
     free_device()
     cfg = _model_cfg(arch, depth)
     torch.cuda.reset_peak_memory_stats()
@@ -3971,8 +3979,11 @@ def phase_train_ssm(arch: str, phase: int, steps: int = 6, seq: int = 1024, batc
     check(peak <= reckoned + 8 * 2**30,
           f"peak device memory {peak / 2**30:.2f} GiB exceeds the reckoning "
           f"{reckoned / 2**30:.2f} GiB by more than 8 GiB")
+    # the device's activity only: the step's 200k host events took the
+    # profiler about 23 s to parse on an H100's host (the optimizer's span
+    # is phase 31's profile's)
     _, wall, kms = profile_run(lambda: tr.train(1, log_every=0), f"one {arch} train step",
-                               top=12, spans=(SPAN_GRADS, SPAN_OPTIMIZER))
+                               top=12)
     ssd_bwd = sum(kms[name] for name in SSD_BWD_BF16_KERNELS)
     attn_bwd = sum(kms[name] for name in BWD_BF16_KERNELS)
     log(f"    the SSD backward in the profiled step: {ssd_bwd:.2f} ms of {wall * 1e3:.1f} ms "
@@ -4255,6 +4266,283 @@ def phase_examples() -> dict:
     return launches
 
 
+# phase 45: the reference's optimized_pod_order on the pods of a 16- and a
+# 32-pod fleet (the JAX package's values)
+POD_ORDER_PINS = {
+    16: {"pod_graph": "(16,4)-Optimal-SA", "mpl": 1.75, "diameter": 3.0,
+         "mpl_lb": 1.7333333333333334},
+    32: {"pod_graph": "(32,4)-Optimal-SA", "mpl": 2.3588709677419355, "diameter": 4.0,
+         "mpl_lb": 2.3548387096774195},
+}
+
+
+def _local(t):
+    """A DTensor's local shard (the whole tensor at world size 1), or the
+    tensor."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _greedy(model, params, tokens, max_seq: int, steps: int):
+    """Prefill and ``steps`` greedy decode steps: the tokens (b, steps + 1)."""
+    import torch
+
+    vocab = model.cfg.vocab
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    logits, cache = model.prefill(params, {"tokens": tokens}, max_seq)
+    out = [full(logits)[:, -1, :vocab].argmax(-1)]
+    for _ in range(steps):
+        logits, cache = model.decode_step(params, out[-1][:, None], cache)
+        out.append(full(logits)[:, -1, :vocab].argmax(-1))
+    return torch.stack(out, dim=1).cpu()
+
+
+def phase_sharded(steps: int = 2, seq: int = 1024, batch: int = 8) -> dict:
+    """The sharded path (the port of the reference's ``models/sharding.py``,
+    ``launch/mesh.py`` and ``launch/specs.py``) on the one card: (a) the
+    paper's pod order on the host, pinned, and the production mesh refused
+    at world size 1; over NCCL at world size 1 (a ``file://`` store, as
+    phase 23), (b) qwen3-32b at full width, depth 2, phase 31's config
+    (bf16, remat "full", 2 microbatches, AdamW, global batch 8 x 1024):
+    ``steps`` steps on one device, then the same steps on a (1, 1, 1)
+    mesh from the same seed and batches, one model alive at a time (the
+    unsharded run's weights kept): losses, grad norms and every updated
+    weight bit for bit equal; (d) greedy prefill of 8 x 1024 and 4 decode
+    steps from the trained weights, sharded against unsharded: the tokens
+    equal; (e) the live AdamW state placed as ``train_state_specs`` says,
+    and the sharded state's weights, step and AdamW m and v of the
+    attention blocks (stacked leaves) and the final norm saved and
+    restored onto a (1, 1) ("data", "model") mesh with
+    ``train_state_specs``' shardings: every leaf bit-equal, placed as the
+    specs say (the other moments, 17 GB more, are left out for time: the
+    whole state took 57 s to save and restore); (c)
+    kimi-k2-1t-a32b at depth 1 with 16 experts (phase 29's cut): one loss
+    through the ep path on the mesh bit for bit equal to the unsharded
+    loss; (f) ``examples/torch_train_lm.py --mesh`` and
+    ``examples/torch_elastic_failover.py`` on the card.  Returns the
+    attention kernels' launches of the sharded runs."""
+    import logging
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import specs as S
+    from repro_torch.models import build_model
+
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    t_phase = time.perf_counter()
+    log("[45] the sharded path: DeviceMesh and DTensor at world size 1")
+    for n_pods, pin in POD_ORDER_PINS.items():
+        t0 = time.perf_counter()
+        order, info = lm.optimized_pod_order(n_pods, 4)
+        check(order == list(range(n_pods)) and info == pin,
+              f"optimized_pod_order({n_pods}, 4) = {order}, {info}; pinned {pin}")
+        log(f"    (a) optimized_pod_order({n_pods}, 4): {info} in "
+            f"{time.perf_counter() - t0:.2f} s (host), equal to the JAX package's")
+    launches = {"flash_attention_kernel": 0, "flash_attention_bwd_kernel": 0}
+
+    def count(before: dict) -> dict:
+        now = _train_counts()
+        return {k: now[k] - before.get(k, 0) for k in launches}
+
+    marks = [("start", time.perf_counter())]
+
+    def mark(name: str) -> None:
+        marks.append((name, time.perf_counter()))
+
+    with lm.local_world(DEV):
+        try:
+            lm.make_production_mesh()
+            refused = None
+        except RuntimeError as exc:
+            refused = str(exc)
+        check(refused is not None and "needs 256 ranks" in refused,
+              f"make_production_mesh at world size 1: {refused!r}")
+        log(f"    (a) make_production_mesh() at world size 1 refused: {refused}")
+        mesh = lm.make_test_mesh((1, 1, 1), device=DEV)
+
+        # (b) the train steps, unsharded then sharded
+        cfg = _model_cfg("qwen3-32b", 2)
+        hist, times, weights = {}, {}, None
+        for key, on in (("unsharded", None), ("sharded", mesh)):
+            free_device()
+            t0 = time.perf_counter()
+            tr = _trainer(cfg, steps, seq, batch, device=DEV, mesh=on)
+            tr.init(0)
+            torch.cuda.synchronize()
+            t_init = time.perf_counter() - t0
+            _reset_train_counts()
+            hist[key] = tr.train(steps, log_every=0)
+            got = count({})
+            times[key] = [h["time_s"] for h in hist[key]]
+            log(f"    (b) {key}: made in {t_init:.2f} s; "
+                + "; ".join(f"step {h['step']} loss {h['loss']!r} grad norm "
+                            f"{h['grad_norm']!r} {h['time_s'] * 1e3:.1f} ms" for h in hist[key])
+                + f"; launches {got}")
+            fwd, bwd = _attn_calls_per_step(cfg)
+            want = {"flash_attention_kernel": steps * fwd,
+                    "flash_attention_bwd_kernel": steps * bwd}
+            check(got == want, f"(b) {key} launches {got}, expected {want}")
+            if on is None:
+                weights = [p.detach().clone() for p in tr.state["params"].parameters()]
+                del tr
+            else:
+                launches = {k: launches[k] + got[k] for k in launches}
+            mark(f"(b) {key}")
+        for a, b in zip(hist["unsharded"], hist["sharded"]):
+            check(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"],
+                  f"(b) step {a['step']}: unsharded loss {a['loss']!r} / grad norm "
+                  f"{a['grad_norm']!r}, sharded {b['loss']!r} / {b['grad_norm']!r}")
+        params = tr.state["params"]
+        same = [torch.equal(w, p.to_local()) for w, p in zip(weights, params.parameters())]
+        check(all(same) and len(same) == len(weights),
+              f"(b) {same.count(False)} of {len(same)} updated weights differ")
+        log(f"    (b) {steps} steps of {batch} x {seq}: losses, grad norms and all {len(same)} "
+            f"updated weights bit for bit equal; step times (host clock) unsharded "
+            f"{[round(t * 1e3, 1) for t in times['unsharded']]} ms, sharded "
+            f"{[round(t * 1e3, 1) for t in times['sharded']]} ms")
+
+        # (d) serving from the trained weights, sharded against unsharded
+        prompts = torch.from_numpy(np.random.default_rng(45).integers(
+            0, cfg.vocab, (8, seq)).astype(np.int64)).to(DEV)
+        before = _train_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            tok_mesh = _greedy(tr.model, params, prompts, seq + 8, 4)
+        t_mesh = time.perf_counter() - t0
+        got = count(before)
+        check(got["flash_attention_kernel"] == cfg.n_layers,
+              f"(d) sharded prefill launches {got}, expected {cfg.n_layers} attention")
+        launches = {k: launches[k] + got[k] for k in launches}
+        plain = build_model(cfg, device=DEV)
+        plain_params = plain.init(1)
+        with torch.no_grad():
+            for p, w in zip(plain_params.parameters(), weights):
+                p.copy_(w)
+        t0 = time.perf_counter()
+        tok_plain = _greedy(plain, plain_params, prompts, seq + 8, 4)
+        t_plain = time.perf_counter() - t0
+        del plain, plain_params
+        check(torch.equal(tok_mesh, tok_plain),
+              f"(d) greedy tokens differ: sharded {tok_mesh[:, 1:].tolist()}, unsharded "
+              f"{tok_plain[:, 1:].tolist()}")
+        del weights
+        mark("(d)")
+        log(f"    (d) prefill 8 x {seq} and 4 greedy decode steps: tokens equal "
+            f"({tok_mesh[0].tolist()} for request 0); sharded {t_mesh:.2f} s, unsharded "
+            f"{t_plain:.2f} s (host clock)")
+
+        # (e) the state saved, restored onto a (1, 1) ("data", "model") mesh:
+        # the weights, the step and AdamW's m and v of the attention blocks
+        # (stacked leaves, their placements Shard(dim + 1)) and the final norm
+        d = tempfile.mkdtemp(prefix="smoke45-")
+        try:
+            t0 = time.perf_counter()
+            full = tr.reference_tree()
+            live = dict(ckpt._flatten_with_paths(
+                S.train_state_specs(tr.model, tr.opt, tr.opt.name)[1]))
+            misplaced = [name for name, t in ckpt._flatten_with_paths(full["opt_state"])
+                         if list(t.placements) != live["opt_state/" + name].placements]
+            check(not misplaced, f"(e) AdamW state placed apart from its specs: {misplaced[:5]}")
+
+            def part(tree):
+                return {"blocks": {"attn": tree["blocks"]["attn"]},
+                        "final_norm": tree["final_norm"]}
+
+            tree = {"params": full["params"], "step": full["step"],
+                    "opt_state": {k: part(full["opt_state"][k]) for k in ("m", "v")}}
+            del full
+            ckpt.save(d, int(tr.state["step"]), tree)
+            t_save = time.perf_counter() - t0
+            mesh2 = lm.make_test_mesh((1, 1), ("data", "model"), device=DEV)
+            m2 = build_model(cfg, mesh=mesh2)
+            specs2 = S.train_state_specs(m2, tr.opt, tr.opt.name)[1]
+            shardings = {"params": specs2["params"], "step": None,
+                         "opt_state": {k: part(specs2["opt_state"][k]) for k in ("m", "v")}}
+            t0 = time.perf_counter()
+            restored, step, _ = ckpt.restore(d, like=tree, shardings=shardings)
+            t_restore = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        flat_want = ckpt._flatten_with_paths(tree)
+        flat_got = dict(ckpt._flatten_with_paths(restored))
+        flat_sh = dict(ckpt._flatten_with_paths(shardings))
+        bad = [name for name, leaf in flat_want if not (
+            torch.equal(torch.as_tensor(_local(leaf)).cpu() if flat_sh[name] is None
+                        else _local(leaf), _local(flat_got[name]))
+            and (flat_sh[name] is None or (flat_got[name].device_mesh is mesh2 and list(
+                flat_got[name].placements) == flat_sh[name].placements)))]
+        n_opt = sum(name.startswith("opt_state/") for name, _ in flat_want)
+        check(step == steps and not bad and n_opt == 2 * (len(tree["params"]["blocks"]["attn"])
+                                                          + 1),
+              f"(e) restored step {step}, {n_opt} AdamW leaves; leaves differing or misplaced: "
+              f"{bad[:5]}")
+        gib = sum(_local(t).numel() * _local(t).element_size()
+                  for _, t in flat_want if hasattr(t, "numel")) / 2**30
+        log(f"    (e) the state's weights, step and AdamW m and v of the attention blocks and "
+            f"the final norm ({len(flat_want)} leaves, {n_opt} of them m and v, {gib:.2f} GiB) "
+            f"saved in {t_save:.2f} s and restored onto a (1, 1) ('data', 'model') mesh with "
+            f"train_state_specs' shardings in {t_restore:.2f} s: every leaf bit-equal and "
+            f"placed as the specs say; the live AdamW state placed as its specs")
+        del tr, params, tree, restored
+        mark("(e)")
+
+        # (c) the MoE's ep path: one loss, sharded against unsharded
+        free_device()
+        kcfg = _model_cfg("kimi-k2-1t-a32b", 1, 16)
+        data = SyntheticLM(kcfg, DataConfig(seq_len=seq, global_batch=2, seed=0)).batch(0)
+        plain = build_model(kcfg, device=DEV)
+        kparams = plain.init(0)
+        with torch.no_grad():
+            loss_plain = plain.loss(kparams, data)[0]
+            before = _train_counts()
+            sharded = build_model(kcfg, mesh=mesh)
+            S.place_params(sharded, kparams)
+            loss_mesh = sharded.loss(kparams, data)[0]
+            got = count(before)
+        launches = {k: launches[k] + got[k] for k in launches}
+        check(torch.equal(loss_plain, loss_mesh),
+              f"(c) kimi loss unsharded {float(loss_plain)!r}, sharded {float(loss_mesh)!r}")
+        log(f"    (c) kimi-k2-1t-a32b depth 1, 16 experts (ep), 2 x {seq} tokens: loss "
+            f"{float(loss_mesh)!r} on the mesh, bit for bit the unsharded loss; launches {got}")
+        del plain, sharded, kparams
+        free_device()
+        mark("(c)")
+
+    # (f) the examples on the card
+    before = _train_counts()
+    for name, argv in (("torch_train_lm", ["--steps", "60", "--mesh"]),
+                       ("torch_elastic_failover", [])):
+        lines, secs = _run_example(_example(name), argv + ["--device", DEV])
+        log(f"    (f) examples/{name}.py {' '.join(argv)} --device {DEV}: {secs:.2f} s")
+        for line in lines:
+            if not line.startswith("[straggler]"):
+                log(f"      | {line}")
+        if name == "torch_train_lm":
+            check(lines[0] == "fresh start" and lines[-1].endswith("(LEARNING)"),
+                  f"torch_train_lm: {lines[0]!r} ... {lines[-1]!r}")
+        else:
+            check("remesh plan: shape (4, 4), layout improvement 46.1%, survivors used: 16"
+                  in lines and lines[-1] == "elastic failover complete",
+                  f"torch_elastic_failover: {lines}")
+    got = count(before)
+    launches = {k: launches[k] + got[k] for k in launches}
+    mark("(f)")
+    log("    phase 45's parts (host clock): " + ", ".join(
+        f"{name} {t - marks[i][1]:.1f} s" for i, (name, t) in enumerate(marks[1:])))
+    check(all(launches.values()), f"phase 45 launched a kernel of its path no time: {launches}")
+    log(f"    launches in phase 45's sharded runs and examples: {launches}; phase 45 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -4386,6 +4674,9 @@ def main() -> int:
     elapsed("43")
     examples = phase_examples()
     elapsed("44")
+    # the sharded path at world size 1 (45)
+    sharded = phase_sharded()
+    elapsed("45")
     log(f"    launches on the invariants' paths: Table 1 {invariants[0]}, "
         f"whole graph {invariants[1]}, 256-node suite {invariants[2]}, "
         f"layout and remesh {invariants[3]}, collectives {invariants[4]}, "
@@ -4406,6 +4697,9 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + sum(run[name] for run in trained)
     log(f"    launches on the examples' and the search benchmark's paths: {examples}")
     for name, count in examples.items():
+        launches[name] += count
+    log(f"    launches on the sharded path: {sharded}")
+    for name, count in sharded.items():
         launches[name] += count
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]

@@ -16,10 +16,15 @@ written after all leaves and LATEST after the manifest, so a crash
 mid-save never corrupts the restore path.  bfloat16 is written as its raw
 bytes with the dtype string ``"bfloat16"`` (as the reference's
 ``str(arr.dtype)``) and read back through its 16-bit pattern, without
-``ml_dtypes``.  The reference's ``restore(shardings=...)`` places leaves
-on a device mesh; the port has no mesh yet (ROADMAP, Queue 1, item 13),
-so restored leaves are CPU tensors and the caller copies them where they
-belong.
+``ml_dtypes``.
+
+On a mesh a tree's leaves may be DTensors: every rank calls ``save``,
+each DTensor is gathered whole (a collective, in the same leaf order on
+every rank), rank 0 writes, and a barrier ends the call, so the files
+are the same as one device's.  ``restore(..., shardings=...)`` (the
+reference's reshard-on-restore, the elastic-rescale path) places each
+leaf onto its sharding's mesh and placements, whatever mesh wrote it;
+without shardings restored leaves are CPU tensors.
 """
 from __future__ import annotations
 
@@ -51,39 +56,66 @@ def _flatten_with_paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
     return [(prefix, tree)]
 
 
-def _bytes(leaf) -> tuple[bytes, list[int], str]:
-    """A leaf's raw bytes, shape and dtype string."""
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _bytes(leaf) -> tuple:
+    """A leaf's raw bytes (a buffer: a tensor's host copy, not copied
+    again), shape and dtype string (a DTensor's gathered whole: every rank
+    must call this for it)."""
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         name = _TORCH_NAMES[t.dtype]
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
-        return t.numpy().tobytes(), list(leaf.shape), name
+        return memoryview(t.numpy().reshape(-1)).cast("B"), list(leaf.shape), name
     arr = np.asarray(leaf)
     return arr.tobytes(), list(arr.shape), str(arr.dtype)
 
 
-def _leaf(buf: bytes, meta: dict) -> torch.Tensor:
-    """A leaf's bytes back as a CPU tensor of its dtype and shape."""
+def _leaf(path: str, meta: dict) -> torch.Tensor:
+    """A leaf's file read back as a CPU tensor of its dtype and shape."""
     shape = meta["shape"]
     if meta["dtype"] == "bfloat16":
-        bits = np.frombuffer(buf, dtype=np.int16).reshape(shape)
-        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.frombuffer(buf, dtype=np.dtype(meta["dtype"])).reshape(shape).copy())
+        bits = np.fromfile(path, dtype=np.int16).reshape(shape)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.fromfile(path, dtype=np.dtype(meta["dtype"])).reshape(shape))
 
 
 def save(ckpt_dir: str, step: int, tree: Any, extras: dict | None = None) -> str:
-    """Atomically save a tree for ``step``. Returns the step directory."""
+    """Atomically save a tree for ``step``. Returns the step directory.
+    With DTensor leaves every rank calls it; rank 0 writes."""
+    leaves = _flatten_with_paths(tree)
+    if not any(_is_dtensor(leaf) for _, leaf in leaves):
+        return _write(ckpt_dir, step, [(name, _bytes(leaf)) for name, leaf in leaves], extras)
+    import torch.distributed as dist
+
+    data = [(name, _bytes(leaf)) for name, leaf in leaves]  # collective per DTensor
+    final = os.path.join(ckpt_dir, f"step_{step:09d}")
+    try:
+        if dist.get_rank() == 0:
+            final = _write(ckpt_dir, step, data, extras)
+    finally:
+        dist.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, step: int, data: list, extras: dict | None) -> str:
+    """Write (name, (bytes, shape, dtype)) leaves as step ``step``."""
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:09d}")
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_save_")
     manifest = {"step": step, "extras": extras or {}, "leaves": {}}
     try:
-        for name, leaf in _flatten_with_paths(tree):
-            data, shape, dtype = _bytes(leaf)
+        for name, (buf, shape, dtype) in data:
             fn = name.replace(_SEP, "__") + ".bin"
             with open(os.path.join(tmp, fn), "wb") as f:
-                f.write(data)
+                f.write(buf)
             manifest["leaves"][name] = {"file": fn, "shape": shape, "dtype": dtype}
         with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
             json.dump(manifest, f, indent=1)
@@ -122,12 +154,28 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int | None = None, like: Any | None = None
-            ) -> tuple[Any, int, dict]:
+def _place(t: torch.Tensor, sharding) -> torch.Tensor:
+    """A full CPU tensor as a DTensor on ``sharding``'s mesh and placements
+    (each rank keeps its shard; no communication)."""
+    if sharding is None:
+        return t
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = sharding.mesh
+    dev = (torch.device("cuda", torch.cuda.current_device()) if mesh.device_type == "cuda"
+           else torch.device(mesh.device_type))
+    return distribute_tensor(t.to(dev), mesh, sharding.placements, src_data_rank=None)
+
+
+def restore(ckpt_dir: str, step: int | None = None, like: Any | None = None,
+            shardings: Any | None = None) -> tuple[Any, int, dict]:
     """Restore (tree, step, extras), leaves as CPU tensors.
 
     ``like``: a nested dict of the target structure (its leaves' names are
     read); without it the tree is flat, ``{name: tensor}``.
+    ``shardings``: a nested dict matching ``like`` of ``NamedSharding``s
+    (``launch.specs``) or None leaves: each leaf is placed onto its mesh
+    (reshard-on-restore, elastic rescale); a None leaf stays on the CPU.
     """
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
@@ -138,8 +186,7 @@ def restore(ckpt_dir: str, step: int | None = None, like: Any | None = None
 
     def load_leaf(name: str) -> torch.Tensor:
         meta = manifest["leaves"][name]
-        with open(os.path.join(d, meta["file"]), "rb") as f:
-            return _leaf(f.read(), meta)
+        return _leaf(os.path.join(d, meta["file"]), meta)
 
     if like is None:
         return ({name: load_leaf(name) for name in manifest["leaves"]}, manifest["step"],
@@ -150,9 +197,10 @@ def restore(ckpt_dir: str, step: int | None = None, like: Any | None = None
         raise KeyError(f"checkpoint missing leaves: {missing[:5]} (+{max(len(missing) - 5, 0)})")
     tree: dict = {}
     for name in names:
-        node = tree
+        node, sh = tree, shardings
         *keys, last = name.split(_SEP)
         for key in keys:
             node = node.setdefault(key, {})
-        node[last] = load_leaf(name)
+            sh = sh[key] if sh is not None else None
+        node[last] = _place(load_leaf(name), sh[last] if sh is not None else None)
     return tree, manifest["step"], manifest["extras"]

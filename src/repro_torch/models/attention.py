@@ -10,8 +10,9 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops as kops
+from .sharding import all_max, psum
 
-__all__ = ["attention", "decode_attention", "NEG_INF"]
+__all__ = ["attention", "decode_attention", "local_kv_heads", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -27,14 +28,34 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
     return kops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
 
 
+def local_kv_heads(k: torch.Tensor, v: torch.Tensor, r: int, h_loc: int, g: int):
+    """The kv heads that query heads r*h_loc .. (r+1)*h_loc - 1 read (global
+    query head i reads kv head i // g), as (b, s, kv_loc, hd) tensors whose
+    local GQA map j -> j // (h_loc / kv_loc) is right: a run of whole groups
+    when h_loc is a multiple of g; the one shared kv head when g is a
+    multiple of h_loc (qwen3-32b's 64/8 heads on 16 shards: two shards read
+    one kv head); else each query head's own kv head."""
+    base = r * h_loc
+    if h_loc % g == 0:
+        lo, n = base // g, h_loc // g
+    elif g % h_loc == 0:
+        lo, n = base // g, 1
+    else:
+        idx = torch.div(base + torch.arange(h_loc, device=k.device), g, rounding_mode="floor")
+        return k.index_select(2, idx), v.index_select(2, idx)
+    return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     length_mask: torch.Tensor) -> torch.Tensor:
+                     length_mask: torch.Tensor, group=None) -> torch.Tensor:
     """Single-token attention against a KV cache, grouped so the cache is
     never repeated to full heads.  q (b, 1, h, hd), caches (b, kv, S, hd),
     length_mask (b, S) True where a slot is valid -> (b, 1, h, hd).
     PyTorch ops: one query token is a plain product, outside any kernel.
     Products take fp32 inputs, as the reference's bf16 products accumulate
-    into fp32 (``preferred_element_type``)."""
+    into fp32 (``preferred_element_type``).  On a mesh whose model axis
+    splits the cache's slots ("kv_seq" -> model), ``group`` is that axis's:
+    the softmax's max and sums and the output reduce over it."""
     b, sq, h, hd = q.shape
     if sq != 1:
         raise ValueError(f"decode_attention takes one query token, got {sq}")
@@ -43,9 +64,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     qg = q[:, 0].reshape(b, kvh, g, hd)
     logits = torch.einsum("bkgd,bksd->bkgs", qg.float(), k_cache.float()) * hd ** -0.5
     logits = logits.masked_fill(~length_mask[:, None, None, :], NEG_INF)
-    m = logits.amax(dim=-1, keepdim=True)
+    m = all_max(logits.amax(dim=-1, keepdim=True), group)
     p = torch.exp(logits - m)
-    l = p.sum(dim=-1, keepdim=True)
+    l = psum(p.sum(dim=-1, keepdim=True), group)
     probs = (p / torch.clamp(l, min=1e-30)).to(v_cache.dtype)
-    out = torch.einsum("bkgs,bksd->bkgd", probs.float(), v_cache.float())
+    out = psum(torch.einsum("bkgs,bksd->bkgd", probs.float(), v_cache.float()), group)
     return out.reshape(b, 1, h, hd).to(q.dtype)

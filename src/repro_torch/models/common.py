@@ -20,6 +20,8 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .sharding import all_max, all_min, fanout, group_size, psum
+
 __all__ = [
     "DTYPES",
     "Initializer",
@@ -44,11 +46,15 @@ class Initializer:
     """
 
     def __init__(self, seed: int, dtype: torch.dtype, device: torch.device):
-        self.gen = torch.Generator(device=device).manual_seed(int(seed))
+        self.device = torch.device(device)
+        # the meta device (shapes and dtypes only, ``launch.specs``) draws nothing
+        self.gen = (None if self.device.type == "meta"
+                    else torch.Generator(device=device).manual_seed(int(seed)))
         self.dtype = dtype
-        self.device = device
 
     def normal(self, shape: Sequence[int], stddev: float | None = None) -> torch.Tensor:
+        if self.gen is None:
+            return torch.empty(tuple(shape), dtype=self.dtype, device=self.device)
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         std = stddev if stddev is not None else 1.0 / math.sqrt(fan_in)
         x = torch.randn(tuple(shape), generator=self.gen, device=self.device,
@@ -62,7 +68,7 @@ class Initializer:
         w1 would need 22.5 GB).  The std rule is the same: fan-in =
         ``shape[-2]``."""
         out = torch.empty(tuple(shape), dtype=self.dtype, device=self.device)
-        for i in range(shape[0]):
+        for i in range(shape[0] if self.gen is not None else 0):
             out[i] = self.normal(shape[1:], stddev)
         return out
 
@@ -129,11 +135,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return out.to(x.dtype)
 
 
-def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP: (x@w1 · silu(x@w3)) @ w2."""
+def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
+           group=None) -> torch.Tensor:
+    """SwiGLU MLP: (x@w1 · silu(x@w3)) @ w2.  On a mesh, ``group`` is the
+    model axis's when w1 and w3 hold this rank's slice of the hidden units
+    ("ff") and w2 its rows: the input enters through ``fanout`` and the
+    partial outputs meet in a ``psum`` ("seq_sp", "embed"); with no group
+    both return their input."""
+    x = fanout(x, group)
     h = torch.einsum("bsd,df->bsf", x, w1)
     g = torch.einsum("bsd,df->bsf", x, w3)
-    return torch.einsum("bsf,fd->bsd", h * F.silu(g), w2)
+    return psum(torch.einsum("bsf,fd->bsd", h * F.silu(g), w2), group)
 
 
 # ------------------------------------------------------------------------------
@@ -141,13 +153,19 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor
 # ------------------------------------------------------------------------------
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
-                       z_loss: float = 1e-4) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+                       z_loss: float = 1e-4, group=None
+                       ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Next-token cross-entropy over (b, s, vocab_padded) logits and (b, s)
     labels, in fp32: the padded vocab masked to -1e30, the log-sum-exp, the
     gold logit, z-loss ``z_loss * lse^2``.  Returns (loss, metrics): the
     differentiable mean loss, and its ``loss``, ``nll``, ``z_loss`` and
     ``accuracy`` (argmax over the masked logits, the first index among
-    ties, as ``jnp.argmax``), all but ``loss`` detached."""
+    ties, as ``jnp.argmax``), all but ``loss`` detached.  With a ``group``
+    of more than one rank the logits are this rank's slice of the
+    vocabulary ("vocab" -> model, rank r holding columns r * v_loc ..):
+    ``_vocab_split_loss``."""
+    if group_size(group) > 1:
+        return _vocab_split_loss(logits, labels, vocab, group, z_loss)
     logits = logits.float()
     vpad = logits.shape[-1]
     if vpad > vocab:
@@ -161,6 +179,37 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
     loss = (nll + zl).mean()
     with torch.no_grad():
         acc = (logits.argmax(dim=-1) == labels).float().mean()
+    return loss, {"loss": loss, "nll": nll.detach().mean(), "z_loss": zl.detach().mean(),
+                  "accuracy": acc}
+
+
+def _vocab_split_loss(logits: torch.Tensor, labels: torch.Tensor, vocab: int, group,
+                      z_loss: float) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """``cross_entropy_loss`` over vocab-split logits: the same quantities,
+    each reduced over the group (the max before the exponent is a
+    constant, outside the gradient); the padded vocabulary is masked by
+    each shard's global columns, and the argmax takes the lowest column
+    among the shards' maxima."""
+    import torch.distributed as dist
+
+    logits = logits.float()
+    v_loc = logits.shape[-1]
+    lo = dist.get_rank(group) * v_loc
+    col = lo + torch.arange(v_loc, device=logits.device)
+    logits = logits.masked_fill(col >= vocab, -1e30)
+    labels = labels.long()
+    m = all_max(logits.amax(dim=-1), group)
+    lse = m + torch.log(psum(torch.exp(logits - m[..., None]).sum(dim=-1), group))
+    hit = labels[..., None] == col
+    gold = psum(torch.where(hit, logits, 0.0).sum(dim=-1), group)
+    nll = lse - gold
+    zl = z_loss * lse.square()
+    loss = (nll + zl).mean()
+    with torch.no_grad():
+        vmax, arg = logits.max(dim=-1)
+        best = all_max(vmax, group)
+        cand = torch.where(vmax == best, arg + lo, torch.iinfo(torch.int64).max)
+        acc = (all_min(cand, group) == labels).float().mean()
     return loss, {"loss": loss, "nll": nll.detach().mean(), "z_loss": zl.detach().mean(),
                   "accuracy": acc}
 

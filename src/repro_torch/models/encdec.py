@@ -31,6 +31,8 @@ __all__ = [
     "EncDecLM",
     "init_encdec",
     "encode",
+    "encdec_param_axes",
+    "encdec_cache_axes",
     "encdec_init_cache",
     "encdec_prefill",
     "encdec_decode_step",
@@ -131,6 +133,39 @@ def _dec_layer_decode(lp, x: torch.Tensor, position: torch.Tensor, idx: int,
     o = decode_attention(q, cross_k, cross_v, mask)
     x = x + torch.einsum("bshk,hkd->bsd", o, lp["cross"]["wo"])
     return x + _mlp(lp["mlp"], rms_norm(x, lp["ln3"]))
+
+
+def encdec_param_axes(cfg: ArchConfig) -> dict:
+    """Logical dim names of the encoder-decoder's weights, stacked (the
+    layer dim first), as the reference's."""
+    attn = {
+        "wq": (None, "w_embed", "w_heads", None),
+        "wk": (None, "w_embed", "w_kv_heads", None),
+        "wv": (None, "w_embed", "w_kv_heads", None),
+        "wo": (None, "w_heads", None, "w_embed"),
+    }
+    mlp = {"w1": (None, "w_embed", "w_ff"), "w3": (None, "w_embed", "w_ff"),
+           "w2": (None, "w_ff", "w_embed")}
+    return {
+        "embed": ("w_vocab", "w_embed"),
+        "enc_blocks": {"attn": dict(attn), "mlp": dict(mlp), "ln1": (None, None),
+                       "ln2": (None, None)},
+        "enc_norm": (None,),
+        "dec_blocks": {"attn": dict(attn), "cross": dict(attn), "mlp": dict(mlp),
+                       "ln1": (None, None), "ln2": (None, None), "ln3": (None, None)},
+        "final_norm": (None,),
+        "head": ("w_embed", "w_vocab"),
+    }
+
+
+def encdec_cache_axes() -> dict:
+    return {
+        "k": (None, "batch", "kv_heads", "kv_seq", None),
+        "v": (None, "batch", "kv_heads", "kv_seq", None),
+        "cross_k": (None, "batch", "kv_heads", None, None),
+        "cross_v": (None, "batch", "kv_heads", None, None),
+        "index": (),
+    }
 
 
 def encdec_init_cache(cfg: ArchConfig, batch: int, max_seq: int,

@@ -22,7 +22,8 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from .common import DTYPES, Initializer, ParamModule, cross_entropy_loss, remat, rms_norm
-from .ssm import MambaBlock, init_ssm_state, mamba_block, mamba_decode_step
+from .ssm import (MambaBlock, init_ssm_state, mamba_block, mamba_decode_step,
+                  mamba_logical_axes, ssm_state_logical_axes)
 from .transformer import (DenseBlock, _positions_for, dense_layer, dense_layer_decode,
                           padded_dims)
 
@@ -30,6 +31,8 @@ __all__ = [
     "HybridLM",
     "init_hybrid",
     "hybrid_forward",
+    "hybrid_param_axes",
+    "hybrid_cache_axes",
     "hybrid_init_cache",
     "hybrid_prefill",
     "hybrid_decode_step",
@@ -87,6 +90,39 @@ def hybrid_forward(params: HybridLM, tokens: torch.Tensor, cfg: ArchConfig,
         if collect:
             kvs.append(kv)
     return x, states, kvs
+
+
+def hybrid_param_axes(cfg: ArchConfig) -> dict:
+    """Logical dim names of the hybrid's weights, as the reference's: the
+    stacked Mamba2 layers and the one shared attention block."""
+    attn = {
+        "wq": ("w_embed", "w_heads", None),
+        "wk": ("w_embed", "w_kv_heads", None),
+        "wv": ("w_embed", "w_kv_heads", None),
+        "wo": ("w_heads", None, "w_embed"),
+    }
+    return {
+        "embed": ("w_vocab", "w_embed"),
+        "mamba": mamba_logical_axes(),
+        "shared": {
+            "attn": attn,
+            "mlp": {"w1": ("w_embed", "w_ff"), "w3": ("w_embed", "w_ff"),
+                    "w2": ("w_ff", "w_embed")},
+            "ln1": (None,),
+            "ln2": (None,),
+        },
+        "final_norm": (None,),
+        "head": ("w_embed", "w_vocab"),
+    }
+
+
+def hybrid_cache_axes() -> dict:
+    return {
+        **ssm_state_logical_axes(),
+        "k": (None, "batch", "kv_heads", "kv_seq", None),
+        "v": (None, "batch", "kv_heads", "kv_seq", None),
+        "index": (),
+    }
 
 
 def hybrid_init_cache(cfg: ArchConfig, batch: int, max_seq: int,

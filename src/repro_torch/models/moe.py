@@ -1,9 +1,24 @@
 """Mixture-of-Experts FFN with capacity-based token dispatch: the port's copy
-of ``repro.models.moe`` on one device (the reference's ``_moe_shard`` with no
-mesh axes, plus the shared expert).  The ``ep``/``tp`` sharding modes and
-their all_to_all and psum collectives wait for the port's sharding
-(ROADMAP, Queue 1, item 13); on one device both modes compute the same
-function, which is what runs here.
+of ``repro.models.moe``, the shared expert included.
+
+One body, ``_moe_shard``, runs a rank's tokens; with no process groups it
+is the whole function on one device.  On a mesh (``moe_ffn`` with a
+``Shards``) it runs each rank's local tokens, at the local token
+count's capacity, between the reference's collectives, each an autograd
+function over a mesh axis's process group (``sharding``):
+
+  * ``ep`` (kimi-k2: experts split over 'model'): the (E, C, d) buffer
+    exchanged by an all-to-all over 'model' so each rank runs its
+    E/model experts on every rank's tokens, and a second all-to-all back
+    (``_ep_send``, ``_ep_return``).
+  * ``tp`` (grok-1: fewer experts than the model axis): every rank holds a
+    d_ff slice of every expert; the expert outputs' partial sums meet in a
+    psum over 'model' (identity backward), and the buffer enters the
+    experts through the psum's mirror (identity forward, all-reduce
+    backward), as Megatron's f and g.
+  * the aux loss is averaged over ``mean_groups``, the mesh axes across
+    which the tokens differ (the reference's pmean over every axis: the
+    other axes hold equal copies).
 
 Routing is fp32: softmax over the experts, the top k gates with the lower
 expert index winning a tie (as ``lax.top_k``), renormalised; the Switch aux
@@ -30,8 +45,9 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig, MoECfg
 from .common import Initializer, swiglu
+from .sharding import NO_MESH, AllToAll, Shards, fanout, gather, group_size, pmean, psum, split
 
-__all__ = ["init_moe_ffn", "moe_ffn"]
+__all__ = ["init_moe_ffn", "moe_logical_axes", "moe_ffn"]
 
 
 def init_moe_ffn(ini: Initializer, cfg: ArchConfig) -> dict:
@@ -52,6 +68,54 @@ def init_moe_ffn(ini: Initializer, cfg: ArchConfig) -> dict:
         p["shared"] = {"w1": ini.normal((d, fs)), "w3": ini.normal((d, fs)),
                        "w2": ini.normal((fs, d))}
     return p
+
+
+def moe_logical_axes(cfg: ArchConfig) -> dict:
+    """Logical dim names of an MoE layer's weights, stacked (the leading
+    layer dim None), as the reference's."""
+    m = cfg.moe
+    if m.mode == "ep":
+        w = {
+            "w1": (None, "w_expert", "w_exp_in", "w_exp_fe"),
+            "w3": (None, "w_expert", "w_exp_in", "w_exp_fe"),
+            "w2": (None, "w_expert", "w_exp_fe", "w_exp_in"),
+        }
+    else:  # tp
+        w = {
+            "w1": (None, None, "w_embed", "w_ff"),
+            "w3": (None, None, "w_embed", "w_ff"),
+            "w2": (None, None, "w_ff", "w_embed"),
+        }
+    axes = {"router": (None, None, None), **w}
+    if m.n_shared_experts:
+        axes["shared"] = {
+            "w1": (None, "w_embed", "w_ff"),
+            "w3": (None, "w_embed", "w_ff"),
+            "w2": (None, "w_ff", "w_embed"),
+        }
+    return axes
+
+
+def _ep_send(buf: torch.Tensor, group) -> torch.Tensor:
+    """(E, C, d) -> (E/n, n*C, d): this rank's experts, every rank's slots
+    for them in rank order (the reference's tiled all_to_all, split 0,
+    concat 1)."""
+    n = group_size(group)
+    if n == 1:
+        return buf
+    E, C, d = buf.shape
+    out = AllToAll.apply(buf, group)
+    return out.view(n, E // n, C, d).transpose(0, 1).reshape(E // n, n * C, d)
+
+
+def _ep_return(out: torch.Tensor, group) -> torch.Tensor:
+    """(E/n, n*C, d) -> (E, C, d): ``_ep_send``'s inverse."""
+    n = group_size(group)
+    if n == 1:
+        return out
+    el, nc, d = out.shape
+    o = out.view(el, n, nc // n, d).transpose(0, 1).reshape(n * el, nc // n, d)
+    return AllToAll.apply(o, group)
 
 
 def _capacity(t_loc: int, m: MoECfg) -> int:
@@ -128,28 +192,65 @@ def _combine(out: torch.Tensor, e_flat: torch.Tensor, pos: torch.Tensor, keep: t
     return y
 
 
-def _moe_experts(x: torch.Tensor, router: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
-                 w2: torch.Tensor, m: MoECfg) -> tuple[torch.Tensor, torch.Tensor]:
-    """The routed experts on one device: x (b, s, d) -> (y (b, s, d), aux)."""
-    b, s, d = x.shape
-    t = b * s
+def _moe_shard(x: torch.Tensor, router: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+               w2: torch.Tensor, m: MoECfg, model_group=None, mean_groups: tuple = ()
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts on one rank's tokens: x (bl, s, d) -> (y, aux).
+    With no groups this is the whole function on one device.  Weights,
+    their d dim whole (``transformer.local_params`` gathers it): ep
+    (E_loc, d, fe) and (E_loc, fe, d); tp (E, d, fe_loc) and (E, fe_loc, d)."""
+    bl, s, d = x.shape
+    t = bl * s
     E, k = m.n_experts, m.top_k
     xf = x.reshape(t, d)
     gates, gate_k, eids = _route(xf, router, m)
     # Switch aux loss: E * sum_e (fraction of assignments to e) * (mean gate of e)
     counts = torch.bincount(eids.reshape(-1), minlength=E).float()
     aux = E * torch.sum(counts / t / k * gates.mean(dim=0))
+    aux = pmean(aux, mean_groups)
     buf, e_flat, pos, keep = _dispatch(xf, eids, _capacity(t, m), E)
-    y = _combine(_experts(buf, w1, w3, w2), e_flat, pos, keep, gate_k)
-    return y.reshape(b, s, d).to(x.dtype), aux
+    if m.mode == "ep":
+        out = _ep_return(_experts(_ep_send(buf, model_group), w1, w3, w2), model_group)
+    else:  # tp: every expert's fe slice here; one psum combines the partial d
+        out = psum(_experts(fanout(buf, model_group), w1, w3, w2), model_group)
+    y = _combine(out, e_flat, pos, keep, gate_k)
+    return y.reshape(bl, s, d).to(x.dtype), aux
 
 
-def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig, sh: Shards = NO_MESH
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN for one layer: x (b, s, d) -> (y (b, s, d), the router's aux
-    loss, a 0-d fp32 tensor)."""
+    loss, a 0-d fp32 tensor).  On a mesh (``sh``, this rank's local
+    tokens and weights) the routed experts are the reference's sharded
+    ones: ep splits the sequence over the model axis when it divides
+    (each rank dispatches its own tokens, the experts exchanged by
+    all-to-all); tp keeps the tokens whole and psums the fe-split experts'
+    outputs.  Without a mesh every group is None and this is the function
+    on one device."""
     m = cfg.moe
-    y, aux = _moe_experts(x, p["router"], p["w1"], p["w3"], p["w2"], m)
+    ms = sh.model_size
+    if m.mode == "ep":
+        if p["w1"].shape[0] * ms != m.n_experts:
+            raise ValueError(f"{m.n_experts} experts do not split over a {ms}-way "
+                             f"{sh.model_axis!r} axis")
+        seq_split = ms > 1 and x.shape[1] % ms == 0
+        if not seq_split and ms > 1 and torch.is_grad_enabled() and x.requires_grad:
+            raise ValueError(f"MoE gradients on a mesh need the sequence ({x.shape[1]}) "
+                             f"split over the {ms}-way model axis")
+        xs = split(x, 1, sh.model) if seq_split else x
+        means = sh.batch_groups + ((sh.model,) if seq_split else ())
+        y, aux = _moe_shard(xs, p["router"], p["w1"], p["w3"], p["w2"], m,
+                            model_group=sh.model, mean_groups=means)
+        if seq_split:
+            y = gather(y, 1, sh.model, partial=False)
+    else:
+        fe_split = ms > 1 and p["w1"].shape[2] < m.d_ff_expert
+        y, aux = _moe_shard(x, p["router"], p["w1"], p["w3"], p["w2"], m,
+                            model_group=sh.model if fe_split else None,
+                            mean_groups=sh.batch_groups)
     if m.n_shared_experts:
-        sh = p["shared"]
-        y = y + swiglu(x, sh["w1"], sh["w3"], sh["w2"])
+        shared = p["shared"]
+        ff_split = ms > 1 and shared["w1"].shape[1] < m.d_ff_expert * m.n_shared_experts
+        y = y + swiglu(x, shared["w1"], shared["w3"], shared["w2"],
+                       sh.model if ff_split else None)
     return y, aux

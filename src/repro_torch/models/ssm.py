@@ -25,6 +25,8 @@ __all__ = [
     "mamba_block",
     "mamba_decode_step",
     "init_ssm_state",
+    "mamba_logical_axes",
+    "ssm_state_logical_axes",
     "ssd_chunked_ref",
 ]
 
@@ -165,6 +167,29 @@ def mamba_block(p, x: torch.Tensor, cfg: ArchConfig,
     y = rms_norm(y * F.silu(zgate), p["norm"])
     out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
     return x + out, final_state, new_conv
+
+
+def mamba_logical_axes() -> dict:
+    """Logical dim names of the stacked Mamba2 layers' weights (the layer
+    dim first), as the reference's."""
+    return {
+        "in_proj": (None, "w_embed", None),
+        "conv_w": (None, None, None),
+        "conv_b": (None, None),
+        "A_log": (None, None),
+        "D": (None, None),
+        "dt_bias": (None, None),
+        "norm": (None, "w_ff"),
+        "out_proj": (None, "w_ff", "w_embed"),
+        "ln": (None, None),
+    }
+
+
+def ssm_state_logical_axes() -> dict:
+    return {
+        "ssm": (None, "batch", "ssm_heads", None, None),
+        "conv": (None, "batch", None, "ff"),
+    }
 
 
 def init_ssm_state(cfg: ArchConfig, n_layers: int, batch: int, device=None) -> dict:

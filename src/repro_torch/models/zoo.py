@@ -2,8 +2,9 @@
 the six families (``dense``, ``moe``, ``vlm``, ``ssm``, ``hybrid``,
 ``encdec``):
 
-    model = build_model(cfg, device=...)
+    model = build_model(cfg, mesh=None, device=...)
     params = model.init(seed)                      -> nn.Module on the device
+    model.param_axes(), model.cache_axes()         -> logical-axis trees
     cache = model.init_cache(batch, max_seq)
     logits, cache = model.prefill(params, batch, max_seq)
     logits, cache = model.decode_step(params, tokens, cache)
@@ -17,6 +18,22 @@ reference raises ``KeyError``).  A training batch adds ``labels`` (b, s).
 ``device=None`` is the CUDA device and raises where there is none;
 ``"cpu"`` runs the kernels' plain versions.  ``loss`` records autograd
 (no ``inference_mode``); ``prefill`` and ``decode_step`` do not.
+
+On a mesh (``build_model(cfg, mesh=...)``, a ``DeviceMesh`` from
+``launch.mesh``) the rules come from ``make_rules(mesh,
+cfg.sharding_overrides)``: ``init`` places each weight as a DTensor by
+``launch.specs.param_shardings``; ``loss``, ``prefill`` and
+``decode_step`` take a batch of full tensors (the same on every rank),
+keep this rank's rows (``batch_logical_axes``) and run the same
+``transformer`` functions as one device on the weights' local shards
+(``transformer.local_params``); the device is the mesh's.  ``loss``
+returns its loss and metrics as plain tensors, the same on every rank;
+``prefill`` and ``decode_step`` return DTensor logits (split over the
+batch) and a cache of DTensors placed as ``cache_axes`` says.  The dense,
+moe and vlm families run on a mesh; ssm, hybrid and
+encdec raise ``NotImplementedError`` there (their SSD kernel under
+"ssm_heads" -> model needs its own local wrapper, ROADMAP Queue 1, item
+21), though their axes trees are here.
 
 The SSM family (mamba2) lives here, as in the reference: a stack of Mamba2
 layers between the embedding and the head, with an O(1) decode state.
@@ -33,11 +50,27 @@ from ..configs.base import PORTED_FAMILIES, ArchConfig
 from ..device import resolve_device
 from . import encdec, hybrid, ssm, transformer
 from .common import DTYPES, Initializer, ParamModule, cross_entropy_loss, remat, rms_norm
+from .sharding import ShardingRules, Shards, make_rules
 
-__all__ = ["Model", "SSMLM", "build_model"]
+__all__ = ["Model", "SSMLM", "batch_logical_axes", "build_model"]
 
 
 _TRANSFORMER = ("dense", "moe", "vlm")
+
+# where the families that do not run on a mesh yet are queued
+MESH_ITEM = "ROADMAP Queue 1, item 21"
+
+
+def batch_logical_axes(name: str, shape: tuple) -> tuple:
+    """Logical dim names of a batch entry, as the reference's
+    ``batch_shardings`` places it: M-RoPE positions (3, b, s) split over
+    the batch on their second dim, image embeddings and frames (b, s, d),
+    everything else over its first dim."""
+    if name == "positions" and len(shape) == 3 and shape[0] == 3:
+        return (None, "batch", "seq")
+    if name in ("img_embeds", "frames"):
+        return ("batch", "seq", "embed")
+    return ("batch",) + (None,) * (len(shape) - 1)
 
 
 def _tensor(x, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -145,18 +178,96 @@ def _ssm_decode(params: SSMLM, tokens: torch.Tensor, cache: dict, cfg: ArchConfi
 class Model:
     cfg: ArchConfig
     device: torch.device
+    rules: ShardingRules = dataclasses.field(default_factory=lambda: make_rules(None))
+
+    @property
+    def mesh(self):
+        return self.rules.mesh
 
     def init(self, seed: int = 0) -> nn.Module:
         """Weights drawn from ``torch.Generator(device).manual_seed(seed)``
-        with the reference's std rules (not the reference's numbers)."""
+        with the reference's std rules (not the reference's numbers).  On a
+        mesh every rank draws the same full weights and keeps its shard."""
         f = self.cfg.family
         if f in _TRANSFORMER:
-            return transformer.init_dense(self.cfg, seed, self.device)
+            params = transformer.init_dense(self.cfg, seed, self.device)
+        elif f == "ssm":
+            params = _init_ssm(self.cfg, seed, self.device)
+        elif f == "encdec":
+            params = encdec.init_encdec(self.cfg, seed, self.device)
+        else:
+            params = hybrid.init_hybrid(self.cfg, seed, self.device)
+        if self.mesh is not None:
+            from ..launch import specs
+
+            specs.place_params(self, params)
+        return params
+
+    def param_axes(self) -> dict:
+        """Logical dim names per parameter, in the reference's tree (stacked
+        leaves with a leading None)."""
+        f = self.cfg.family
+        if f in _TRANSFORMER:
+            return transformer.param_logical_axes(self.cfg)
         if f == "ssm":
-            return _init_ssm(self.cfg, seed, self.device)
-        if f == "encdec":
-            return encdec.init_encdec(self.cfg, seed, self.device)
-        return hybrid.init_hybrid(self.cfg, seed, self.device)
+            return {
+                "embed": ("w_vocab", "w_embed"),
+                "mamba": ssm.mamba_logical_axes(),
+                "final_norm": (None,),
+                "head": ("w_embed", "w_vocab"),
+            }
+        if f == "hybrid":
+            return hybrid.hybrid_param_axes(self.cfg)
+        return encdec.encdec_param_axes(self.cfg)
+
+    def cache_axes(self) -> dict:
+        f = self.cfg.family
+        if f in _TRANSFORMER:
+            return transformer.cache_logical_axes()
+        if f == "ssm":
+            return {**ssm.ssm_state_logical_axes(), "index": ()}
+        if f == "hybrid":
+            return hybrid.hybrid_cache_axes()
+        return encdec.encdec_cache_axes()
+
+    @property
+    def shards(self) -> Shards:
+        """This rank's view of the mesh (``NO_MESH``'s without one)."""
+        return Shards(self.rules)
+
+    def _local_batch(self, sh: Shards, batch: dict) -> dict:
+        """This rank's rows of a batch of full tensors (the batch itself
+        without a mesh)."""
+        if sh.batch_size == 1:
+            return batch
+        return {name: sh.local_batch(t, batch_logical_axes(name, tuple(t.shape)).index("batch"))
+                for name, t in batch.items()}
+
+    def _dtensor(self, t: torch.Tensor, names: tuple, shape: tuple):
+        """A local shard as the DTensor of global ``shape`` that the names
+        place."""
+        from torch.distributed.tensor import DTensor
+
+        pl = self.rules.placements(*names, dims=tuple(shape))
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(t, self.mesh, pl, run_check=False, shape=torch.Size(shape),
+                                  stride=stride)
+
+    def _logits_out(self, logits: torch.Tensor, batch: int) -> torch.Tensor:
+        """On a mesh the DTensor of this rank's rows of the logits."""
+        if self.mesh is None:
+            return logits
+        return self._dtensor(logits, ("batch", None, None), (batch, *logits.shape[1:]))
+
+    def _cache_out(self, cache: dict, batch: int, max_seq: int) -> dict:
+        """On a mesh the cache's k and v as the DTensors ``cache_axes``
+        places."""
+        if self.mesh is None:
+            return cache
+        _, kvp, _ = transformer.padded_dims(self.cfg)
+        shape = (self.cfg.n_layers, batch, kvp, max_seq, self.cfg.resolved_head_dim)
+        names = transformer.cache_logical_axes()["k"]
+        return dict(cache, **{k: self._dtensor(cache[k], names, shape) for k in ("k", "v")})
 
     def init_cache(self, batch: int, max_seq: int) -> dict:
         f = self.cfg.family
@@ -178,7 +289,15 @@ class Model:
         b = {name: (_tokens(v, self.device) if name in ("tokens", "labels")
                     else _tensor(v, self.device)) for name, v in batch.items()}
         if f in _TRANSFORMER:
-            return transformer.dense_loss(params, b, self.cfg)
+            sh = self.shards
+            rows = b["tokens"].shape[0]
+            if rows % sh.batch_size:
+                # each rank would hold every row, and the gradients' sums over
+                # the batch axes would count each row batch_size times
+                raise ValueError(f"a batch of {rows} rows does not split over the "
+                                 f"{sh.batch_size} batch shards of the mesh")
+            return transformer.dense_loss(transformer.local_params(params, self.cfg, sh),
+                                          self._local_batch(sh, b), self.cfg, sh)
         if f == "ssm":
             return _ssm_loss(params, b, self.cfg)
         if f == "encdec":
@@ -192,7 +311,13 @@ class Model:
         if f in _TRANSFORMER:
             extra = {name: _tensor(batch[name], self.device)
                      for name in ("img_embeds", "positions") if name in batch}
-            return transformer.dense_prefill(params, tokens, self.cfg, max_seq, **extra)
+            sh = self.shards
+            local = self._local_batch(sh, {"tokens": tokens, **extra})
+            logits, cache = transformer.dense_prefill(
+                transformer.local_params(params, self.cfg, sh), local.pop("tokens"), self.cfg,
+                max_seq, sh=sh, **local)
+            b = tokens.shape[0]
+            return self._logits_out(logits, b), self._cache_out(cache, b, max_seq)
         if f == "ssm":
             return _ssm_prefill(params, tokens, self.cfg)
         if f == "encdec":
@@ -208,7 +333,16 @@ class Model:
         f = self.cfg.family
         tokens = _tokens(tokens, self.device)
         if f in _TRANSFORMER:
-            return transformer.dense_decode_step(params, tokens, cache, self.cfg)
+            sh = self.shards
+            local = cache
+            if self.mesh is not None:  # the DTensors' local slots, written in place
+                local = dict(cache, k=cache["k"].to_local(), v=cache["v"].to_local())
+            logits, local = transformer.dense_decode_step(
+                transformer.local_params(params, self.cfg, sh), sh.local_batch(tokens), local,
+                self.cfg, sh)
+            if local is not cache:
+                cache = dict(cache, index=local["index"])
+            return self._logits_out(logits, tokens.shape[0]), cache
         if f == "ssm":
             return _ssm_decode(params, tokens, cache, self.cfg)
         if f == "encdec":
@@ -216,8 +350,22 @@ class Model:
         return hybrid.hybrid_decode_step(params, tokens, cache, self.cfg)
 
 
-def build_model(cfg: ArchConfig, device=None) -> Model:
+def build_model(cfg: ArchConfig, mesh=None, device=None) -> Model:
+    """A model on ``device`` (None: the CUDA device), or on ``mesh``, whose
+    device type it takes (a ``device`` given beside a mesh must agree)."""
     if cfg.family not in PORTED_FAMILIES:
         raise ValueError(f"unknown model family {cfg.family!r} (known: "
                          f"{list(PORTED_FAMILIES)})")
-    return Model(cfg=cfg, device=resolve_device(device))
+    if mesh is None:
+        return Model(cfg=cfg, device=resolve_device(device))
+    if cfg.family not in _TRANSFORMER:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family does not run on a mesh yet ({MESH_ITEM}); "
+            f"its axes trees are ported (Model.param_axes, Model.cache_axes)")
+    kind = mesh.device_type
+    if device is not None and torch.device(device).type != kind:
+        raise ValueError(f"device {device!r} differs from the mesh's {kind!r}")
+    dev = resolve_device("cpu" if kind == "cpu" else "cuda")
+    if kind == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return Model(cfg=cfg, device=dev, rules=make_rules(mesh, cfg.sharding_overrides))

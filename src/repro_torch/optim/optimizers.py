@@ -25,6 +25,15 @@ leaf's u whole and walks its layers and matrices in slices.
 Scalars (the step's learning rate, bias corrections, the clip scale) are
 0-d fp32 tensors on the parameters' device, so an update never waits for
 the device.
+
+On a mesh the parameters are DTensors.  AdamW's state is then DTensors
+placed as the parameters (a stacked leaf's with its layer dim first,
+unsplit), its gradients are redistributed to the parameters' placements
+(a partial sum is reduced there), and the elementwise update runs on
+each rank's local shards; only the global norm reduces across shards
+(``global_norm``).  Adafactor on a mesh raises ``NotImplementedError``:
+its ``SLICE_ELEMS`` slices and its factored means cut along dims that
+may be split (ROADMAP Queue 1, item 21).
 """
 from __future__ import annotations
 
@@ -77,9 +86,38 @@ def _f32(x: float, device) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=device)
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (its storage: in-place ops write the
+    DTensor), or the tensor itself."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
+def _device(t: torch.Tensor) -> torch.device:
+    return _local(t).device
+
+
+def _sum_sq(g: torch.Tensor) -> torch.Tensor:
+    """sum(g^2) in fp32; a DTensor's (in its parameter's placements) is
+    its local sum, summed over the mesh dims that split it."""
+    ss = torch.sum(torch.square(_local(g).float()))
+    if _is_dtensor(g):
+        from torch.distributed.tensor import Shard
+
+        for i, pl in enumerate(g.placements):
+            if isinstance(pl, Shard) and g.device_mesh.size(i) > 1:
+                torch.distributed.all_reduce(ss, group=g.device_mesh.get_group(i))
+    return ss
+
+
 def global_norm(grads: list) -> torch.Tensor:
     """sqrt of the sum over every leaf of its sum of squares, in fp32."""
-    per_leaf = [sum(torch.sum(torch.square(g.float())) for g in gs) for gs in grads]
+    per_leaf = [sum(_sum_sq(g) for g in gs) for gs in grads]
     return torch.sqrt(torch.sum(torch.stack(per_leaf)))
 
 
@@ -90,7 +128,7 @@ def clip_by_global_norm(grads: list, max_norm: float) -> tuple[list, torch.Tenso
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     with torch.no_grad():
         for gs in grads:
-            for g in gs:
+            for g in map(_local, gs):
                 if g.dtype == torch.float32:
                     g.mul_(scale)
                 else:
@@ -136,14 +174,13 @@ def adamw(lr: Callable | float = 3e-4, b1: float = 0.9, b2: float = 0.95, eps: f
     def init(leaves: list) -> dict:
         state: dict = {"m": {}, "v": {}}
         for leaf in leaves:
-            dev = leaf.tensors[0].device
             for key in ("m", "v"):
-                tree_set(state[key], leaf.path,
-                         torch.zeros(leaf.shape, dtype=torch.float32, device=dev))
+                tree_set(state[key], leaf.path, _state_zeros(leaf))
         return state
 
     def update(grads: list, state: dict, leaves: list, step) -> dict:
-        dev = leaves[0].tensors[0].device
+        dev = _device(leaves[0].tensors[0])
+        grads = _to_param_placements(grads, leaves)
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         step = _step(step, dev)
         t = step.float() + 1.0
@@ -152,8 +189,9 @@ def adamw(lr: Callable | float = 3e-4, b1: float = 0.9, b2: float = 0.95, eps: f
         bc2 = 1.0 - torch.pow(_f32(b2, dev), t)
         with torch.no_grad():
             for leaf, gs in zip(leaves, grads):
-                m_all, v_all = tree_get(state["m"], leaf.path), tree_get(state["v"], leaf.path)
-                for j, (p, g) in enumerate(zip(leaf.tensors, gs)):
+                m_all = _local(tree_get(state["m"], leaf.path))
+                v_all = _local(tree_get(state["v"], leaf.path))
+                for j, (p, g) in enumerate(zip(map(_local, leaf.tensors), map(_local, gs))):
                     m, v = (m_all[j], v_all[j]) if leaf.stacked else (m_all, v_all)
                     g32 = g.float()
                     m.mul_(b1).add_(g32 * (1 - b1))
@@ -170,6 +208,56 @@ def adamw(lr: Callable | float = 3e-4, b1: float = 0.9, b2: float = 0.95, eps: f
         return {"grad_norm": gnorm, "lr": lr_t}
 
     return Optimizer(init=init, update=update, name="adamw")
+
+
+def _state_zeros(leaf: Leaf) -> torch.Tensor:
+    """fp32 zeros of the reference leaf's shape; for DTensor parameters a
+    DTensor placed as they are (a stacked leaf's layer dim first, whole)."""
+    t = leaf.tensors[0]
+    if not _is_dtensor(t):
+        return torch.zeros(leaf.shape, dtype=torch.float32, device=t.device)
+    from torch.distributed.tensor import DTensor, Shard
+
+    local = t.to_local()
+    pl = list(t.placements)
+    shape = tuple(local.shape)
+    if leaf.stacked:
+        pl = [Shard(p.dim + 1) if isinstance(p, Shard) else p for p in pl]
+        shape = (len(leaf.tensors), *shape)
+    zeros = torch.zeros(shape, dtype=torch.float32, device=local.device)
+    return DTensor.from_local(zeros, t.device_mesh, pl, run_check=False)
+
+
+def as_param_placements(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its parameter's placements: a partial sum is
+    all-reduced over its mesh dim (nothing on a dim of one rank), a plain
+    gradient stays as it is.  Other changes of placement go through
+    ``redistribute``.  The gradient's local shard is reduced in place."""
+    if not _is_dtensor(g) or list(g.placements) == list(p.placements):
+        return g
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh, local = g.device_mesh, g.to_local()
+    for gp, pp in zip(g.placements, p.placements):
+        if gp != pp and not (isinstance(gp, Partial) and isinstance(pp, Replicate)):
+            return g.redistribute(p.device_mesh, p.placements)
+    for i, (gp, pp) in enumerate(zip(g.placements, p.placements)):
+        if gp != pp and mesh.size(i) > 1:
+            torch.distributed.all_reduce(local, group=mesh.get_group(i))
+    return DTensor.from_local(local, mesh, p.placements, run_check=False)
+
+
+def _to_param_placements(grads: list, leaves: list) -> list:
+    """Each DTensor gradient in its parameter's placements."""
+    return [[as_param_placements(p, g) for p, g in zip(leaf.tensors, gs)]
+            for leaf, gs in zip(leaves, grads)]
+
+
+def _refuse_mesh(leaves: list) -> None:
+    if any(_is_dtensor(t) for leaf in leaves for t in leaf.tensors):
+        raise NotImplementedError("Adafactor on a mesh (DTensor parameters) is not ported: "
+                                  "its slices and factored means cut along split dims "
+                                  "(ROADMAP Queue 1, item 21); use adamw on a mesh")
 
 
 def _factored_dims(shape) -> tuple[int, int] | None:
@@ -230,6 +318,7 @@ def adafactor(lr: Callable | float = 1e-3, decay: float = 0.8, eps: float = 1e-3
         return fd is not None and min(shape[fd[0]], shape[fd[1]]) >= min_dim_size_to_factor
 
     def init(leaves: list) -> dict:
+        _refuse_mesh(leaves)
         stats: dict = {}
         for leaf in leaves:
             shape = leaf.shape
@@ -272,6 +361,7 @@ def adafactor(lr: Callable | float = 1e-3, decay: float = 0.8, eps: float = 1e-3
         return u
 
     def update(grads: list, state: dict, leaves: list, step) -> dict:
+        _refuse_mesh(leaves)
         dev = leaves[0].tensors[0].device
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         step = _step(step, dev)

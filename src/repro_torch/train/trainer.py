@@ -23,6 +23,17 @@
 The state is ``{"params": nn.Module, "opt_state": reference-shaped nested
 dict, "step": int}``: the step counter is a Python int (the reference's is
 an int32 device scalar; a checkpoint writes it as one).
+
+On a mesh (a model from ``build_model(cfg, mesh=...)``) the parameters
+and AdamW's state are DTensors placed by ``launch.specs``; each rank runs
+the step on the same full batch, of which ``Model.loss`` keeps this
+rank's rows.  A weight's gradient may be a partial sum (over the batch
+axes, where each rank's tokens differ): the microbatches' gradients are
+summed in fp32 on the local shards, and the optimizer reduces each
+partial sum once a step (``optimizers.as_param_placements``).  A
+checkpoint holds full tensors (gathered, written by rank 0), and
+``restore`` places them onto this trainer's mesh, whatever mesh wrote
+them.
 """
 from __future__ import annotations
 
@@ -93,7 +104,7 @@ def make_train_step(model: Model, opt: Optimizer, microbatches: int = 1) -> Call
             loss, metrics = model.loss(params, batch)
             flat = [t for leaf in leaves for t in leaf.tensors]
             gs = torch.autograd.grad(loss, flat, allow_unused=True)
-        gs = [torch.zeros_like(t) if g is None else g for t, g in zip(flat, gs)]
+            gs = [_zeros_like(t) if g is None else g for t, g in zip(flat, gs)]
         return loss.detach(), metrics, gs
 
     def regroup(leaves, flat):
@@ -109,17 +120,20 @@ def make_train_step(model: Model, opt: Optimizer, microbatches: int = 1) -> Call
         if microbatches == 1:
             loss, metrics, flat = grads_of(params, leaves, batch)
         else:
-            flat = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
-                    for leaf in leaves for t in leaf.tensors]
+            # fp32 sums of the local shards: a partial sum over the batch axes
+            # stays one until the optimizer reduces it, once a step
+            accs = [_zeros_f32(t) for leaf in leaves for t in leaf.tensors]
             loss = 0.0
             for mb in _split(batch, microbatches):
                 l, metrics, gs = grads_of(params, leaves, mb)
-                for acc, g in zip(flat, gs):
-                    acc.add_(g)
+                for acc, g in zip(accs, gs):
+                    acc.add_(_local(g))
+                layouts = [_layout(g) for g in gs]
                 del gs
                 loss = loss + l
-            for acc in flat:
+            for acc in accs:
                 acc.div_(microbatches)
+            flat = [_placed(acc, lay) for acc, lay in zip(accs, layouts)]
             loss = loss / microbatches
         metrics = dict(metrics, loss=loss)
         with record_function(SPAN_OPTIMIZER):
@@ -128,6 +142,43 @@ def make_train_step(model: Model, opt: Optimizer, microbatches: int = 1) -> Call
         return state, dict(metrics, **stats)
 
     return train_step
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard, or the tensor."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _zeros_f32(t: torch.Tensor) -> torch.Tensor:
+    """An fp32 accumulator for the gradient of ``t``'s local shard."""
+    local = _local(t)
+    return torch.zeros(local.shape, dtype=torch.float32, device=local.device)
+
+
+def _layout(g: torch.Tensor):
+    """A DTensor gradient's (mesh, placements), a partial sum's included;
+    None for a plain tensor."""
+    return (g.device_mesh, g.placements) if hasattr(g, "to_local") else None
+
+
+def _placed(acc: torch.Tensor, layout) -> torch.Tensor:
+    """An accumulated local gradient as the DTensor ``layout`` says."""
+    if layout is None:
+        return acc
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(acc, *layout, run_check=False)
+
+
+def _zeros_like(t: torch.Tensor) -> torch.Tensor:
+    """A zero gradient for ``t`` (a DTensor placed as ``t`` on a mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        local = t.to_local()
+        return DTensor.from_local(torch.zeros_like(local), t.device_mesh, t.placements,
+                                  run_check=False)
+    return torch.zeros_like(t)
 
 
 @dataclasses.dataclass
@@ -168,7 +219,14 @@ class Trainer:
             return False
         if self.state is None:
             self.init()
-        tree, _, extras = ckpt.restore(self.ckpt_dir, step, like=self.reference_tree())
+        shardings = None
+        if self.model.mesh is not None:
+            from ..launch import specs
+
+            shardings = dict(specs.train_state_specs(self.model, self.opt, self.opt.name)[1],
+                             step=None)
+        tree, _, extras = ckpt.restore(self.ckpt_dir, step, like=self.reference_tree(),
+                                       shardings=shardings)
         cfg = self.model.cfg
         with torch.no_grad():
             for leaf in reference_leaves(cfg, self.state["params"]):

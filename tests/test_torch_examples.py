@@ -1,6 +1,6 @@
 """The port's examples (``examples/torch_*.py``) against the reference's
-(``examples/quickstart.py``, ``topology_sweep.py``, ``serve_demo.py``) on
-the CPU.
+(``examples/quickstart.py``, ``topology_sweep.py``, ``serve_demo.py``,
+``train_lm.py``, ``elastic_failover.py``) on the CPU.
 
 Each port example runs with ``--device cpu`` in a subprocess.  The
 quickstart and the topology sweep print the reference example's output line
@@ -30,9 +30,9 @@ EXAMPLES = os.path.join(REPO, "examples")
 sys.path.insert(0, EXAMPLES)
 
 
-def _run(script: str, *args: str) -> list[str]:
+def _run(script: str, *args: str, **env_extra: str) -> list[str]:
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
-           "PYTHONPATH": os.pathsep.join([os.path.join(REPO, "src"), REPO])}
+           "PYTHONPATH": os.pathsep.join([os.path.join(REPO, "src"), REPO]), **env_extra}
     proc = subprocess.run([sys.executable, os.path.join(EXAMPLES, script), *args],
                           capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
@@ -128,7 +128,8 @@ def test_serve_demo_loop_gives_the_reference_tokens():
 
 
 @pytest.mark.parametrize("name", ["torch_quickstart", "torch_topology_sweep",
-                                  "torch_serve_demo"])
+                                  "torch_serve_demo", "torch_train_lm",
+                                  "torch_elastic_failover"])
 def test_examples_need_the_device_by_default(name, monkeypatch, capsys):
     """Without ``--device cpu`` the examples raise on a machine without CUDA,
     before printing anything."""
@@ -139,3 +140,42 @@ def test_examples_need_the_device_by_default(name, monkeypatch, capsys):
     with pytest.raises(RuntimeError, match="CUDA"):
         mod.main([])
     assert capsys.readouterr().out == ""
+
+
+def test_train_lm_learns_on_a_mesh():
+    """``examples/torch_train_lm.py`` at a few steps on a world-size-1 mesh
+    of one gloo rank: the reference example's fresh-start and LEARNING
+    lines."""
+    # one intra-op thread: as fast alone, and it does not fight the other
+    # test workers for the host's cores
+    lines = _run("torch_train_lm.py", "--device", "cpu", "--steps", "40", "--mesh",
+                 OMP_NUM_THREADS="1")
+    assert lines[0] == "fresh start"
+    m = re.fullmatch(r"loss ([\d.]+) -> ([\d.]+) over 40 steps \(LEARNING\)", lines[-1])
+    assert m and float(m.group(2)) < float(m.group(1)) - 0.1
+
+
+def test_elastic_failover_plans_as_the_reference():
+    """``examples/torch_elastic_failover.py``: the failure detector's and the
+    remesh plan's lines equal those of the reference example's code
+    (``repro.runtime`` with the example's arguments); the checkpoint is
+    restored onto a mesh and training resumes."""
+    from repro.core import graphs as jgraphs
+    from repro.runtime import FailureDetector as JFailureDetector
+    from repro.runtime import plan_elastic_remesh as jplan_elastic_remesh
+
+    got = _run("torch_elastic_failover.py", "--device", "cpu", OMP_NUM_THREADS="1")
+    # the reference example's detector and plan, with its arguments
+    fd = JFailureDetector(n_nodes=32, timeout_s=10)
+    for i in range(32):
+        fd.heartbeat(i, t=0.0 if i in (3, 12, 17) else 100.0)
+    dead = fd.dead(now=105.0)
+    plan = jplan_elastic_remesh(jgraphs.torus([4, 8]), dead, axis_bytes=(1e6, 8e6),
+                                layout_iters=3000)
+    want = [f"failure detector reports dead: {dead}",
+            f"remesh plan: shape {plan.mesh_shape}, layout improvement "
+            f"{plan.layout_improvement:.1%}, survivors used: {len(plan.device_order)}",
+            "restored at step 10, data step 10; resuming", "elastic failover complete"]
+    keep = ("failure detector", "remesh plan", "restored at", "elastic failover")
+    assert [ln for ln in got if ln.startswith(keep)] == want
+    assert any(ln.startswith("step    10 loss") for ln in got)
